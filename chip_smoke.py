@@ -59,6 +59,29 @@ def make_reads(n_reads, read_len, seed):
     return reads, np.full(n_reads, read_len, dtype=np.int32)
 
 
+def ecoli_config(np):
+    """The flagship read set: 5M x 100 bp reads from a random 4.6 Mbase
+    genome (seed 0xEC011, bench.py's large leg), and 1M 21-mer queries drawn
+    from the reads. Returns ``(reads, lengths, kmers)``."""
+    rng = np.random.default_rng(0xEC011)
+    genome = rng.integers(1, 6, size=4_600_000, dtype=np.uint8)
+    starts = rng.integers(0, genome.size - READ_LEN, N_READS)
+    reads = genome[starts[:, None] + np.arange(READ_LEN)[None, :]]
+    lengths = np.full(N_READS, READ_LEN, np.int32)
+    rows = rng.integers(0, N_READS, N_QUERIES)
+    offs = rng.integers(0, READ_LEN - K + 1, N_QUERIES)
+    kmers = reads[rows[:, None], offs[:, None] + np.arange(K)[None, :]]
+    return reads, lengths, kmers
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def cuda_ms(fn, reps):
     """Mean device milliseconds of ``fn()`` over ``reps`` launches."""
     import torch
@@ -184,15 +207,8 @@ def phase_main(torch, np, dev):
         rle_encode_native,
     )
 
-    rng = np.random.default_rng(0xEC011)
-    genome = rng.integers(1, 6, size=4_600_000, dtype=np.uint8)
-    starts = rng.integers(0, genome.size - READ_LEN, N_READS)
-    reads = genome[starts[:, None] + np.arange(READ_LEN)[None, :]]
-    lengths = np.full(N_READS, READ_LEN, np.int32)
+    reads, lengths, kmers = ecoli_config(np)
     n_bases = int(lengths.sum())
-    rows = rng.integers(0, N_READS, N_QUERIES)
-    offs = rng.integers(0, READ_LEN - K + 1, N_QUERIES)
-    kmers = reads[rows[:, None], offs[:, None] + np.arange(K)[None, :]]
 
     # --- the main path: counts reset just before, read just after ---
     torch.cuda.synchronize()
@@ -266,10 +282,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     log(f"[card] torch {torch.__version__} CUDA {torch.version.cuda}; {kind}")

@@ -62,8 +62,6 @@ def get_lib():
         if _tried:
             return _lib
         _tried = True
-        if os.environ.get("MSBWT_TPU_NO_NATIVE"):
-            return None
         if not _build():
             return None
         lib = ctypes.CDLL(_LIB)

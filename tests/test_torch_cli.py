@@ -64,6 +64,19 @@ def test_build_bad_input_is_ioerr(tmp_path):
     assert build_main(["--device", "cpu", "-o", str(tmp_path / "x.npy"), str(bad)]) == 74
 
 
+def test_build_runtime_error_is_not_ioerr(tmp_path, monkeypatch):
+    # only parse errors (OSError / ValueError) map to 74; a device or kernel
+    # failure propagates with its traceback, so the process exits 1, not 74
+    from rust_msbwt_tpu_torch.models import dynamic
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("merge kernel failed")
+
+    monkeypatch.setattr(dynamic, "create_from_fastx", fail)
+    with pytest.raises(RuntimeError, match="merge kernel failed"):
+        build_main(["--device", "cpu", "-o", str(tmp_path / "x.npy"), GOLDEN_FA])
+
+
 def test_query_counts(capsys):
     assert query_main(["--device", "cpu", GOLDEN_NPY, "ACGT", "TGCA", "$", "GC", "AAAA"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
