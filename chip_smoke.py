@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``rust_msbwt_tpu_torch/csrc`` and drives
-its main path — build with index, then k-mer counting — at the repo's
-flagship size (5M x 100 bp reads from a 4.6 Mbase random genome, 505M BWT
-symbols, 1M 21-mer queries). It never falls back to the CPU and catches no
-failure: any phase that fails ends the run with a traceback and a non-zero
-exit code, and no result line.
+its paths at the repo's flagship size (5M x 100 bp reads from a 4.6 Mbase
+random genome, 505M BWT symbols, 1M 21-mer queries): the one-shot build
+with index and k-mer counting, the streamed build, load-and-extend, and
+read recovery. It never falls back to the CPU and catches no failure: any
+phase that fails ends the run with a traceback and a non-zero exit code,
+and no result line.
 
 Phases:
   1. card check (``nvidia-smi`` name and power limit; no CUDA -> exit 2)
@@ -18,12 +19,24 @@ Phases:
   4. golden bytes: ``test_data/two_string.fa`` through the port's build CLI
      on ``cuda`` must give ``test_data/two_string.npy``
   5. 10k x 100 bp build on ``cuda``, byte-identical to the native reference
-     builder (``csrc/msbwt_baseline.cpp``)
+     builder (``csrc/msbwt_baseline.cpp``); then 10k reads extended by
+     another 10k, once through the kernel and once through the plain merge:
+     identical, and byte-identical to the native builder over all 20k
   6. the 505M main path: build with index through the kernel (launch counts
      reset just before), 6^8 prefix cache, 1M x 21-mer counts; the same
      build with the plain merge on the card must give the same BWT and
      table; 20k counts must equal the native reference query loop
-  7. one JSON line of kernel results, then ``{"ok": true, "device": ...}``
+  7. the streamed path: the same 5M reads in 5 batches of 1M through
+     ``StreamingBuilder`` (counts reset just before), checkpointed after 4;
+     the BWT must equal phase 6's
+  8. the load-and-extend path: ``DynamicBWT.load_numpy_file`` of the
+     404M-symbol checkpoint + ``insert_strings`` of the last 1M reads
+     (counts reset just before) must equal phase 6's BWT; then the parts
+     (index, read-length walk, terminator walk, extend build) timed apart
+  9. recovery on phase 6's index: 100k reads extracted must equal those
+     rows of the sorted reads; every hit of 1,000 located 21-mers must be
+     where it says, with as many hits per query as phase 6 counted
+ 10. one JSON line of kernel results, then ``{"ok": true, "device": ...}``
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_READS, READ_LEN, K, N_QUERIES, N_CHECK = 5_000_000, 100, 21, 1_000_000, 20_000
+BATCH, N_EXTRACT, N_LOCATE = 1_000_000, 100_000, 1_000
 
 
 def log(msg: str) -> None:
@@ -196,7 +210,41 @@ def phase_10k(np, dev):
         "byte-identical to csrc/msbwt_baseline.cpp")
 
 
-def phase_main(torch, np, dev):
+def phase_extend_10k(torch, np, dev):
+    """Phase 5b: 10k reads extended by another 10k (one 20k draw split in
+    two, so the halves share a genome), kernel == plain == native."""
+    from rust_msbwt_tpu_torch.ops.bcr import build_msbwt_with_index
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert, merge_insert_plain
+    from rust_msbwt_tpu_torch.utils.native import baseline_build_native
+
+    reads, lengths = make_reads(20_000, 100, 0xE17E)
+    out = {}
+    for name, merge in (("kernel", merge_insert), ("plain", merge_insert_plain)):
+        before = merge_insert.launches
+        base, _ = build_msbwt_with_index(reads[:10_000], lengths[:10_000],
+                                         device=dev, merge=merge)
+        t0 = time.perf_counter()
+        out[name] = build_msbwt_with_index(reads[10_000:], lengths[10_000:], True,
+                                           base.bwt[: base.n], 10_000,
+                                           device=dev, merge=merge)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = merge_insert.launches - before
+        log(f"[extend-10k] {name}: extend of 10k onto {base.n} symbols "
+            f"{dt:.3f} s, merge kernel launches {launched}")
+        check(launched > 0 if name == "kernel" else launched == 0,
+              f"extend-10k ({name}): kernel launches {launched}")
+    (idx_k, pk), (idx_p, pp) = out["kernel"], out["plain"]
+    check(torch.equal(idx_k.bwt, idx_p.bwt) and torch.equal(pk.table, pp.table),
+          "10k extend: kernel != plain merge")
+    want = baseline_build_native(list(reads), sorted_insert=True)
+    check(np.array_equal(idx_k.bwt[: idx_k.n].cpu().numpy(), want),
+          "10k + 10k extend != native reference builder over 20k")
+    log(f"[extend-10k] {idx_k.n} symbols: kernel == plain, byte-identical to "
+        "csrc/msbwt_baseline.cpp over all 20k reads")
+
+
+def phase_main(torch, np, dev, reads, lengths, kmers):
     """Phase 6: the 505M main path through the kernel, then checks."""
     from rust_msbwt_tpu_torch.ops.bcr import build_msbwt_with_index
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert, merge_insert_plain
@@ -207,7 +255,6 @@ def phase_main(torch, np, dev):
         rle_encode_native,
     )
 
-    reads, lengths, kmers = ecoli_config(np)
     n_bases = int(lengths.sum())
 
     # --- the main path: counts reset just before, read just after ---
@@ -264,7 +311,154 @@ def phase_main(torch, np, dev):
           f"{N_CHECK} counts != native reference query loop")
     log(f"[main] {N_CHECK} counts equal csrc/msbwt_baseline.cpp "
         f"({base_s:.2f} s incl. its index build)")
+    return launches, idx, packed, counts
+
+
+def phase_stream(torch, np, dev, reads, lengths, idx, ckpt):
+    """Phase 7: the streamed path, 5 x 1M batches; checkpoint after 4."""
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+    from rust_msbwt_tpu_torch.utils.streaming import StreamingBuilder
+
+    n_batches = N_READS // BATCH
+    builder = StreamingBuilder(device=dev)
+    # --- the streamed path: counts reset just before, read just after ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge_insert.launches = 0
+    batch_s = []
+    for b in range(n_batches):
+        t0 = time.perf_counter()
+        builder.add_batch(reads[b * BATCH: (b + 1) * BATCH],
+                          lengths[b * BATCH: (b + 1) * BATCH])
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        if b == n_batches - 2:  # not timed: the load-and-extend phase's input
+            t0 = time.perf_counter()
+            builder.checkpoint(ckpt)
+            ckpt_s = time.perf_counter() - t0
+    launches = merge_insert.launches
+    peak = torch.cuda.max_memory_allocated()
+    # --- end of the streamed path ---
+    stream_s = sum(batch_s)
+    n_bases = int(lengths.sum())
+    log(f"[stream] {n_batches} x {BATCH} reads: {stream_s:.3f} s -> "
+        f"{n_bases / stream_s / 1e6:.2f} Mbases/s; per batch "
+        + ", ".join(f"{t:.3f}" for t in batch_s)
+        + f" s; peak device memory {peak / 2**30:.2f} GiB; merge kernel "
+        f"launches {launches}")
+    log(f"[stream] checkpoint after {n_batches - 1} batches: {ckpt_s:.3f} s, "
+        f"{os.path.getsize(ckpt)} bytes")
+    check(launches > 0, "the streamed path launched no merge kernel")
+    got = builder.finish(device_out=True)
+    check(torch.equal(got, idx.bwt[: idx.n]), "streamed BWT != one-shot BWT")
+    log("[stream] BWT identical to the one-shot build")
     return launches
+
+
+def phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt):
+    """Phase 8: load the 404M checkpoint, extend it by the last 1M reads."""
+    from rust_msbwt_tpu_torch.models.dynamic import DynamicBWT
+    from rust_msbwt_tpu_torch.ops import bcr
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+    from rust_msbwt_tpu_torch.ops.rle import decode_symbols_device
+    from rust_msbwt_tpu_torch.utils.native import sort_rows_native
+    from rust_msbwt_tpu_torch.utils.npy import load_bwt_bytes
+
+    last = slice(N_READS - BATCH, N_READS)
+    # --- the load-and-extend path: counts reset just before, read after ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge_insert.launches = 0
+    t0 = time.perf_counter()
+    dyn = DynamicBWT(device=dev)
+    dyn.load_numpy_file(ckpt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dyn.insert_strings(list(reads[last]), True)
+    got = dyn.device_index
+    torch.cuda.synchronize()
+    extend_s = time.perf_counter() - t0
+    launches = merge_insert.launches
+    peak = torch.cuda.max_memory_allocated()
+    # --- end of the load-and-extend path ---
+    log(f"[load-extend] load {load_s:.3f} s (npy read + device decode of "
+        f"{dyn.get_total_size() - int(lengths[last].sum()) - BATCH} symbols); "
+        f"insert {BATCH} reads + materialize {extend_s:.3f} s; peak device "
+        f"memory {peak / 2**30:.2f} GiB; merge kernel launches {launches}")
+    check(launches > 0, "the load-and-extend path launched no merge kernel")
+    check(got.n == idx.n and torch.equal(got.bwt[: got.n], idx.bwt[: idx.n]),
+          "load + extend BWT != one-shot BWT")
+    log("[load-extend] BWT identical to the one-shot build")
+    del dyn, got
+
+    # the same extend's parts, timed apart on a fresh load
+    n_strings = N_READS - BATCH
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+        return res
+
+    rle = timed("npy_read", lambda: load_bwt_bytes(ckpt))
+    base = timed("device_decode", lambda: decode_symbols_device(rle, device=dev))
+    bidx, bpacked = timed("index", lambda: bcr.index_from_symbols(base))
+    rl = timed("read_lengths", lambda: bcr.read_lengths_from_bwt(bidx, n_strings, bpacked))
+    check(rl.shape == (n_strings,) and int(rl.min()) == int(rl.max()) == READ_LEN,
+          "recovered read lengths")
+    timed("encode_reads", lambda: bcr.encode_reads(list(reads[last])))
+    order = sort_rows_native(reads[last])
+    tp = timed("terminator_positions", lambda: bcr.terminator_positions(
+        bidx, reads[last][order], lengths[last][order], READ_LEN + 1, bpacked))
+    check(tp.shape == (BATCH,) and bool((tp[1:] >= tp[:-1]).all()),
+          "terminator ranks of sorted reads are sorted")
+    ext = timed("extend_build", lambda: bcr.build_msbwt_with_index(
+        reads[last], lengths[last], True, base, n_strings, READ_LEN + 1,
+        device=dev, base_index=bpacked))
+    check(torch.equal(ext[0].bwt[: ext[0].n], idx.bwt[: idx.n]),
+          "extend build (known index and bound) != one-shot BWT")
+    log("[load-extend] parts: " + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+        + " (encode_reads: the host packing insert_strings does; "
+        "terminator_positions includes the host stage view of 1M reads; "
+        "extend_build includes its own terminator walk)")
+    return launches
+
+
+def phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts):
+    """Phase 9: extract 100k reads and locate 1,000 21-mers on phase 6's index."""
+    from rust_msbwt_tpu_torch.ops.bcr import read_lengths_from_bwt
+    from rust_msbwt_tpu_torch.ops.extract import extract_reads, locate_kmers
+    from rust_msbwt_tpu_torch.utils.native import sort_rows_native
+
+    sorted_reads = reads[sort_rows_native(reads)]
+    ids = np.random.default_rng(0x1D5).integers(0, N_READS, N_EXTRACT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l_max = int(read_lengths_from_bwt(idx, N_READS, packed).max())
+    rl_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = extract_reads(idx, ids, N_READS, l_max=l_max, packed=packed)
+    ex_s = time.perf_counter() - t0
+    check(l_max == READ_LEN and np.array_equal(np.stack(got), sorted_reads[ids]),
+          "extracted reads != the sorted reads' rows")
+    log(f"[recovery] read-length walk over {N_READS} strings {rl_s:.3f} s; "
+        f"extract {N_EXTRACT} reads {ex_s:.3f} s -> {N_EXTRACT / ex_s:.0f} reads/s "
+        "(host out included); equal to the sorted reads")
+    q_kmers = kmers[:N_LOCATE]
+    t0 = time.perf_counter()
+    q, rid, off = locate_kmers(idx, q_kmers, N_READS, l_max=l_max, packed=packed)
+    loc_s = time.perf_counter() - t0
+    where = sorted_reads[rid[:, None], off[:, None] + np.arange(K)[None, :]]
+    check(bool((where == q_kmers[q]).all()), "a located hit is not its k-mer")
+    check(np.array_equal(np.bincount(q, minlength=N_LOCATE), counts[:N_LOCATE]),
+          "hits per query != phase 6 counts")
+    log(f"[recovery] locate {N_LOCATE} x {K}-mers: {q.size} hits in {loc_s:.3f} s "
+        f"-> {q.size / loc_s:.0f} hits/s (host in/out included); every hit "
+        "checked, hits per query == phase 6 counts")
 
 
 def main() -> int:
@@ -297,7 +491,15 @@ def main() -> int:
     max_err, times = phase_kernel(torch, dev)
     phase_golden("cuda")
     phase_10k(np, dev)
-    launches = phase_main(torch, np, dev)
+    phase_extend_10k(torch, np, dev)
+    reads, lengths, kmers = ecoli_config(np)
+    launches, idx, packed, counts = phase_main(torch, np, dev, reads, lengths, kmers)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "stream_ckpt.npy")
+        launches_stream = phase_stream(torch, np, dev, reads, lengths, idx, ckpt)
+        launches_load_extend = phase_load_extend(torch, np, dev, reads, lengths,
+                                                 idx, ckpt)
+    phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts)
 
     print(json.dumps({"kernels": [{
         "name": "merge_insert",
@@ -305,6 +507,8 @@ def main() -> int:
         "source": "rust_msbwt_tpu_torch/csrc/merge_insert.cu",
         "replaces": "rust_msbwt_tpu/ops/pallas_merge.py:159",
         "launches": launches,
+        "launches_stream": launches_stream,
+        "launches_load_extend": launches_load_extend,
         "max_abs_err": max_err,
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],

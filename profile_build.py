@@ -16,9 +16,17 @@ timed. Then:
    entry point ``build_msbwt_with_index``. The first rep shows what the
    first build in a process costs over the later ones.
 2. Unless ``--no-profile``: one device stage loop and one 1M-query
-   ``count_kmers_packed`` batch (6^8 cache) under ``torch.profiler``. For
-   each: wall seconds, summed device seconds, the device's idle share of
-   the wall time, and the top device kernels and copies by device time.
+   ``count_kmers_packed`` batch (6^8 cache); then the last batch of the
+   streamed build (1M reads onto the 404M-symbol BWT of the first 4M): its
+   terminator walk alone (``_terminator_positions_impl`` on the stage view,
+   lengths and step counts already on the card, as the build runs it), its
+   device stage loop (walk included) and its whole entry point
+   (``build_msbwt_with_index`` with the base's index and bound given). Each
+   runs once unprofiled, for its wall time; all but the entry point run once
+   more under ``torch.profiler``, for the summed device time, the device's
+   idle share of the unprofiled wall time, the device events per call and
+   the top device kernels and copies. The walk's share of the stage loop
+   and of the entry point comes from the unprofiled walls of this process.
 
 Host timers wrap ``torch.cuda.synchronize()``. The card's name and power
 limit are printed first; the last line is one JSON object holding every
@@ -48,25 +56,34 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def wall_time(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def profiled(torch, fn, label: str, top: int) -> dict:
-    """Run ``fn()`` once under ``torch.profiler``; print and return its wall
-    time, summed device time and top device events."""
+    """Run ``fn()`` once unprofiled (its wall time: the profiler's CPU
+    tracing slows every launch) and once under ``torch.profiler`` (its
+    summed device time, device events and top events); print and return
+    them."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    wall = wall_time(torch, fn)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        prof_wall = wall_time(torch, fn)
     # device-side events only (kernels, copies, fills): the CPU ops that
     # launched them carry the same time again
     evts = [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
     evts.sort(key=_device_us, reverse=True)
     dev_s = sum(_device_us(e) for e in evts) * 1e-6
-    log(f"[{label}] wall {wall:.4f} s, device {dev_s:.4f} s, "
-        f"device idle {100 * (1 - dev_s / wall):.1f}% of the wall time")
+    n_events = sum(e.count for e in evts)
+    log(f"[{label}] wall {wall:.4f} s ({prof_wall:.4f} s profiled), device "
+        f"{dev_s:.4f} s in {n_events} events, device idle "
+        f"{100 * (1 - dev_s / wall):.1f}% of the unprofiled wall time")
     rows = []
     for e in evts[:top]:
         ms = _device_us(e) * 1e-3
@@ -74,7 +91,8 @@ def profiled(torch, fn, label: str, top: int) -> dict:
         log(f"[{label}]   {ms:10.3f} ms  x{e.count:<5d} {e.key[:100]}")
     if not evts:
         log(f"[{label}] the profiler recorded no device time")
-    return {"wall_s": wall, "device_s": dev_s, "top": rows}
+    return {"wall_s": wall, "profiled_wall_s": prof_wall, "device_s": dev_s,
+            "device_events": n_events, "top": rows}
 
 
 def main(argv=None) -> int:
@@ -101,7 +119,9 @@ def main(argv=None) -> int:
     from rust_msbwt_tpu_torch import _kernels
     from rust_msbwt_tpu_torch.ops.bcr import (
         _build_device,
+        _cyclic_steps,
         _prepare_build,
+        _terminator_positions_impl,
         build_msbwt_with_index,
     )
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
@@ -127,7 +147,7 @@ def main(argv=None) -> int:
     for i in range(args.reps):
         del idx, packed  # one build's state on the card at a time
         t0 = time.perf_counter()
-        p = _prepare_build(reads, lengths, True, None)
+        p = _prepare_build(reads, lengths, True)
         prep_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -149,7 +169,7 @@ def main(argv=None) -> int:
 
     result = {"card": smi, "symbols": idx.n, "reps": reps}
     if not args.no_profile:
-        p = _prepare_build(reads, lengths, True, None)
+        p = _prepare_build(reads, lengths, True)
         result["build_loop"] = profiled(
             torch, lambda: _build_device(p, dev, merge_insert), "build loop", args.top)
         del p
@@ -158,6 +178,39 @@ def main(argv=None) -> int:
         result["query"] = profiled(
             torch, lambda: count_kmers_packed(packed, kmers, cache=cache, cache_k=8),
             "1M queries", args.top)
+        del cache, idx, packed
+        # the streamed build's last batch: 1M reads onto the first 4M's BWT
+        n0_reads = N_READS - 1_000_000
+        base, bpacked = build_msbwt_with_index(reads[:n0_reads], lengths[:n0_reads],
+                                               device=dev)
+        last = slice(n0_reads, N_READS)
+        p = _prepare_build(reads[last], lengths[last], True, base.n, n0_reads)
+        cols = torch.from_numpy(p["cols"]).to(dev)
+        lens = torch.from_numpy(p["lengths"]).to(dev)
+        steps, n_steps = _cyclic_steps(p["lengths"], READ_LEN + 1, p["L"])
+        steps = torch.from_numpy(steps).to(dev)
+        walk = profiled(
+            torch, lambda: _terminator_positions_impl(bpacked.table, bpacked.starts,
+                                                      base.n, cols, lens, steps, n_steps),
+            "terminator walk", args.top)
+        walk["steps"] = n_steps
+        del cols, lens, steps
+        loop = profiled(
+            torch, lambda: _build_device(p, dev, merge_insert, base.bwt[: base.n],
+                                         bpacked, READ_LEN + 1),
+            "extend loop", args.top)
+        del p
+        entry_s = wall_time(torch, lambda: build_msbwt_with_index(
+            reads[last], lengths[last], True, base.bwt[: base.n], n0_reads,
+            READ_LEN + 1, device=dev, base_index=bpacked))
+        log(f"[terminator walk] {n_steps} LF steps: "
+            f"{1e3 * walk['wall_s'] / n_steps:.3f} ms wall, "
+            f"{1e3 * walk['device_s'] / n_steps:.3f} ms device, "
+            f"{walk['device_events'] / n_steps:.1f} device events a step; "
+            f"{100 * walk['wall_s'] / loop['wall_s']:.1f}% of the extend loop, "
+            f"{100 * walk['wall_s'] / entry_s:.1f}% of the whole extend build "
+            f"({entry_s:.4f} s, host prep included)")
+        result.update(terminator_walk=walk, extend_loop=loop, extend_build_s=entry_s)
     print(json.dumps(result))
     return 0
 

@@ -1,13 +1,15 @@
 """``msbwt2-build`` on the port: FASTX file(s) -> MSBWT -> npy or stdout.
 
     python -m rust_msbwt_tpu_torch.cli.build [-o OUT.npy] [--unsorted]
-        [--device cuda|cpu] FASTX [FASTX ...]
+        [--batch-size N] [--device cuda|cpu] FASTX [FASTX ...]
 
 Flag surface mirrors the reference (ref: src/bin/msbwt2-build.rs:23-41) and
 the JAX package's ``cli.build``: ``-o/--out-bwt`` (default stdout), one or
 more positional FASTX files (FASTA/FASTQ, gzip accepted), ``--unsorted``
-for chronological insertion, plus ``--device`` (default ``cuda``). The JAX
-CLI's ``--distributed`` and ``--batch-size`` are not ported yet.
+for chronological insertion, ``--batch-size N`` to stream the reads
+through the builder N at a time (each batch extends the BWT on the device),
+plus ``--device`` (default ``cuda``). The JAX CLI's ``--distributed`` is
+not ported yet.
 
 Exit codes follow the reference: 66 NOINPUT, 73 CANTCREAT, 74 IOERR
 (ref: src/bin/msbwt2-build.rs:68,80,91,108).
@@ -46,6 +48,11 @@ def main(argv=None) -> int:
         help="Insert strings chronologically instead of lexicographically",
     )
     parser.add_argument(
+        "--batch-size", type=int, default=0, metavar="N",
+        help="Stream reads through the builder N at a time (bounded device "
+        "memory; 0 = one batch per file)",
+    )
+    parser.add_argument(
         "--device", default="cuda",
         help="torch device to build on (default: cuda)",
     )
@@ -64,6 +71,8 @@ def main(argv=None) -> int:
         "\tsort order: %s",
         "lexicographical" if sorted_strings else "chronological",
     )
+    if args.batch_size > 0:
+        logger.info("\tbatch size: %d", args.batch_size)
     logger.info("\tdevice: %s", args.device)
 
     for fn in args.FASTX:
@@ -80,13 +89,18 @@ def main(argv=None) -> int:
             logger.error("Error: %s", e)
             return EX_CANTCREAT
 
-    from rust_msbwt_tpu_torch.models.dynamic import create_from_fastx
+    from rust_msbwt_tpu_torch.models import dynamic
     from rust_msbwt_tpu_torch.ops.alphabet import convert_itos
     from rust_msbwt_tpu_torch.ops.rle import runs_from_symbols
     from rust_msbwt_tpu_torch.utils.npy import save_bwt_runs
 
     try:
-        bwt = create_from_fastx(args.FASTX, sorted_strings, device=args.device)
+        if args.batch_size > 0:
+            bwt = dynamic.create_from_fastx_streaming(
+                args.FASTX, sorted_strings, args.batch_size, device=args.device)
+        else:
+            bwt = dynamic.create_from_fastx(args.FASTX, sorted_strings,
+                                            device=args.device)
     except (OSError, ValueError) as e:  # parse errors
         logger.error("Error while parsing FASTX files: %s", args.FASTX)
         logger.error("Error: %s", e)

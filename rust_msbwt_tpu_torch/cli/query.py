@@ -1,11 +1,12 @@
 """``msbwt2-query`` on the port: batched k-mer counts from the command line.
 
     python -m rust_msbwt_tpu_torch.cli.query BWT.npy [KMER ...] [-i FILE|-]
-        [--cache-k K] [--device cuda|cpu]
+        [--cache-k K] [--locate] [--device cuda|cpu]
 
 Loads a ``comp_msbwt.npy`` BWT, counts every k-mer given as arguments or
-one per line from a file/stdin, prints ``kmer<TAB>count``. The JAX CLI's
-``--locate``, ``--max-mismatch`` and ``--index-pack`` are not ported yet.
+one per line from a file/stdin, prints ``kmer<TAB>count``; with
+``--locate`` also one ``kmer<TAB>read_id<TAB>offset`` line per occurrence.
+The JAX CLI's ``--max-mismatch`` and ``--index-pack`` are not ported yet.
 
 Exit codes follow the build CLI's convention (66 NOINPUT, 74 IOERR).
 """
@@ -43,6 +44,12 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--cache-k", type=int, default=0, metavar="K",
         help="precompute a 6^K prefix-range cache before querying (K <= 8)",
+    )
+    parser.add_argument(
+        "--locate", action="store_true",
+        help="also print one 'kmer<TAB>read_id<TAB>offset' line per "
+        "occurrence (read ids are lexicographic; the id space of "
+        "msbwt2-extract)",
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -93,6 +100,10 @@ def main(argv=None) -> int:
     out = sys.stdout
     for txt, cnt in zip(kmers_txt, counts.tolist()):
         out.write(f"{txt}\t{cnt}\n")
+    if args.locate:
+        q, r, o = bwt.locate_kmers(kmers, lengths)
+        for qi, rid, off in zip(q.tolist(), r.tolist(), o.tolist()):
+            out.write(f"{kmers_txt[qi]}\t{rid}\t{off}\n")
     return 0
 
 

@@ -4,13 +4,15 @@
 Load-then-query engine with the observable behavior of the reference's
 ``RleBWT`` (ref: src/rle_bwt.rs): loads the ``comp_msbwt.npy`` RLE byte
 vector, computes symbol totals in one chunked pass, and answers
-``constrain_range`` / ``count_kmer`` on the host and batched ``count_kmers``
-on the device.
+``constrain_range`` / ``count_kmer`` on the host, and batched
+``count_kmers`` / ``locate_kmers`` on the device.
 
-The device index is decoded on the HOST (native RLE decode) and uploaded;
-the JAX package's device-side decode is not ported yet. Batched queries use
-the packed tier at every size: the pair tier the JAX package switches to at
-32M symbols is not ported yet, and the packed tier gives identical counts.
+The device index is decoded ON the device (``ops.rle.decode_symbols_device``:
+the upload carries the compressed bytes), and both rank indexes come from
+one no-insert merge pass (``ops.bcr.index_from_symbols``). Batched queries
+use the packed tier at every size: the pair tier the JAX package switches
+to at 32M symbols is not ported yet, and the packed tier gives identical
+counts.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import torch
 
 from rust_msbwt_tpu_torch.models.core import BWTBase, BWTRange, HostRank
 from rust_msbwt_tpu_torch.ops import rank as rank_ops
-from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed, pack_index
-from rust_msbwt_tpu_torch.ops.rle import decode_symbols, rle_meta
+from rust_msbwt_tpu_torch.ops.bcr import index_from_symbols
+from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
+from rust_msbwt_tpu_torch.ops.rle import decode_symbols, decode_symbols_device, rle_meta
 from rust_msbwt_tpu_torch.utils.npy import load_bwt_bytes
 
 
@@ -88,21 +91,24 @@ class RleBWT(BWTBase):
             h=c + self._host_rank.rank(sym, input_range.h),
         )
 
+    def _indexes(self):
+        """Both device indexes, derived together from the compressed bytes
+        decoded on the device (the host never holds the decoded array)."""
+        if self._device_index is None:
+            self._device_index, self._packed_index = index_from_symbols(
+                decode_symbols_device(self.bwt, self.total_size, device=self.device)
+            )
+        return self._device_index, self._packed_index
+
     @property
     def device_index(self) -> rank_ops.OccIndex:
-        """Occurrence index on the device (decoded on the host, uploaded)."""
-        if self._device_index is None:
-            self._device_index = rank_ops.build_occ_index(
-                decode_symbols(self.bwt), self.total_size, device=self.device
-            )
-        return self._device_index
+        """Occurrence index on the device."""
+        return self._indexes()[0]
 
     @property
     def packed_index(self):
         """Packed single-gather rank index (``ops.packed_rank``)."""
-        if self._packed_index is None:
-            self._packed_index = pack_index(self.device_index)
-        return self._packed_index
+        return self._indexes()[1]
 
     def enable_kmer_cache(self, cache_k: int = 8) -> None:
         """Precompute the ranges of all length-``cache_k`` strings
@@ -126,3 +132,11 @@ class RleBWT(BWTBase):
             cache=self._kmer_cache, cache_k=self._cache_k,
         )
 
+    def locate_kmers(self, kmers, lengths=None):
+        """Map every k-mer occurrence to ``(query_idx, read_id, offset)``
+        (the original msbwt's ``findReadsMatchingSeq``; read ids are
+        lexicographic — the id space of ``ops.extract.extract_reads``)."""
+        from rust_msbwt_tpu_torch.ops.extract import locate_kmers
+
+        return locate_kmers(self.device_index, kmers, self.get_symbol_count(0),
+                            lengths=lengths, packed=self.packed_index)

@@ -18,17 +18,25 @@ insertion (ref: src/dynamic_bwt.rs:515-525); chronological (``--unsorted``)
 insertion uses arrival order as terminator ranks (ref:
 src/dynamic_bwt.rs:350-351).
 
+Extending an existing BWT (``base``, the load-and-add and streaming flows)
+starts the same stage loop from the base instead of an empty buffer. Stage 1
+puts every new read's last symbol at its terminator slot: after the
+existing terminators for chronological inserts, and for sorted inserts at
+the rank of the read's ``$`` rotation among the base's rotations, found by
+a batched cyclic backward search (``terminator_positions``). That search
+needs the base's longest rotation, which ``read_lengths_from_bwt``
+recovers by LF walk when the caller does not know it.
+
 Capacity buckets. Early stages run on a nearly empty buffer, so the stage
 loop runs in buckets whose capacity grows by ``GROWTH`` as the buffer fills
 (``bucket_schedule``). Every bucket works on a prefix VIEW of full-size
 buffers allocated once, so growing a bucket copies nothing: positions past
 a bucket's capacity still hold PAD from the initial fill.
 
-Deferred (not ported yet): extending an existing BWT (``base``; the JAX
-package's ``terminator_positions`` / ``read_lengths_from_bwt``) raises
-``NotImplementedError``; the radix-2 stage (``_pallas_stage_step2``, which
-the JAX package picks only at a mean read length >= 1000) is not ported;
-nor is the XLA scatter engine ``bcr_insert_core`` — the port has one engine.
+Not ported: the radix-2 stage (``_pallas_stage_step2``), which the JAX
+package's ``build_radix`` picks only at a mean new-read length >= 1000 (so
+never for 100 bp reads, extend included: the base is not counted); nor the
+XLA scatter engine ``bcr_insert_core`` — the port has one engine.
 """
 
 from __future__ import annotations
@@ -38,17 +46,17 @@ import torch
 
 from rust_msbwt_tpu_torch.ops.alphabet import VC_LEN
 from rust_msbwt_tpu_torch.ops.merge_insert import ROW, merge_insert, merge_insert_slots
-from rust_msbwt_tpu_torch.ops.packed_rank import PackedOccIndex, pack_index, rank_packed
+from rust_msbwt_tpu_torch.ops.packed_rank import PackedOccIndex, lf_step
 from rust_msbwt_tpu_torch.ops.rank import (
     BIN,
     PAD,
     OccIndex,
-    build_occ_index,
     starts_from_counts,
 )
 
 _I32 = torch.int32
 GROWTH = 1.3  # capacity growth between stage buckets (JAX package default)
+LF_BLOCK = 32  # read-length walk: LF steps between two host checks
 
 
 # ---------------------------------------------------------------------------
@@ -65,15 +73,17 @@ def encode_reads(reads: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
     >>> r.tolist(), l.tolist()
     ([[1, 2], [3, 0]], [2, 1])
     """
-    n = len(reads)
-    lengths = np.array([len(r) for r in reads], dtype=np.int32)
-    lmax = int(lengths.max()) if n else 0
-    packed = np.zeros((n, max(lmax, 1)), dtype=np.uint8)
-    for i, r in enumerate(reads):
-        arr = np.asarray(r, dtype=np.uint8)
-        if arr.size and arr.min() == 0:
+    arrs = [np.asarray(r, dtype=np.uint8) for r in reads]
+    n = len(arrs)
+    lengths = np.fromiter((a.size for a in arrs), dtype=np.int32, count=n)
+    width = max(int(lengths.max()) if n else 0, 1)
+    packed = np.zeros((n, width), dtype=np.uint8)
+    if n:
+        flat = np.concatenate(arrs)
+        if flat.size and flat.min() == 0:
             raise ValueError("reads must not contain interior '$' (symbol 0)")
-        packed[i, : arr.size] = arr
+        # row-major mask order == concatenation order
+        packed[np.arange(width)[None, :] < lengths[:, None]] = flat
     return packed, lengths
 
 
@@ -108,17 +118,14 @@ def reads_to_cols(reads: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     return cols
 
 
-def _prepare_build(reads, lengths, sorted_insert, base):
-    """Validation, read sort and stage view on the host. Returns a dict of
-    what the device stage loop needs, or ``None`` when there are no reads."""
+def _prepare_build(reads, lengths, sorted_insert, n0=0, base_string_count=0):
+    """Validation, read sort and stage view on the host, for a build onto a
+    base of ``n0`` symbols and ``base_string_count`` strings. Returns a dict
+    of what the device stage loop needs, or ``None`` when there are no
+    reads."""
     from rust_msbwt_tpu_torch.utils.checks import validate_reads
     from rust_msbwt_tpu_torch.utils.native import reads_to_cols_native, sort_rows_native
 
-    if base is not None and len(base):
-        raise NotImplementedError(
-            "extending an existing BWT is not ported yet (JAX package: "
-            "ops.bcr.terminator_positions / read_lengths_from_bwt)"
-        )
     reads = np.asarray(reads, dtype=np.uint8)
     lengths = np.asarray(lengths, dtype=np.int32)
     validate_reads(reads, lengths)
@@ -138,11 +145,147 @@ def _prepare_build(reads, lengths, sorted_insert, base):
         cols = reads_to_cols_native(reads, lengths)
     if cols is None:
         cols = reads_to_cols(reads, lengths)
-    n_cap = int(lengths.sum()) + N
+    n_cap = n0 + int(lengths.sum()) + N
     if n_cap >= 2**31:
         raise ValueError("single-device build limited to 2^31-1 symbols")
     return {"cols": cols, "lengths": lengths, "N": N, "L": int(reads.shape[1]),
-            "n_cap": n_cap}
+            "n0": n0, "n_cap": n_cap, "sorted": bool(sorted_insert),
+            "base_strings": base_string_count,
+            "n_strings_total": base_string_count + N}
+
+
+def _base_symbols(base, device) -> torch.Tensor:
+    """The base BWT as a uint8 tensor on ``device`` (host arrays are
+    validated in debug mode and uploaded; device tensors stay put)."""
+    from rust_msbwt_tpu_torch.utils.checks import validate_bwt
+
+    if base is None:
+        return torch.zeros(0, dtype=torch.uint8, device=device)
+    if isinstance(base, torch.Tensor):
+        if base.dtype != torch.uint8 or base.dim() != 1:
+            raise TypeError("base must be a 1-D uint8 tensor of symbols")
+        return base.to(device)
+    base = np.ascontiguousarray(base, dtype=np.uint8)
+    validate_bwt(base)
+    if not base.flags.writeable:  # e.g. a view of another framework's array
+        base = base.copy()
+    return torch.from_numpy(base).to(device)
+
+
+# ---------------------------------------------------------------------------
+# LF walks over the packed table (extend prep and read recovery)
+# ---------------------------------------------------------------------------
+
+def _read_lengths(bwt: torch.Tensor, packed: PackedOccIndex, n_strings: int) -> np.ndarray:
+    """LF walk from every terminator rotation (rows 0..n_strings-1) until the
+    '$' closes the cycle; the step count is the string's length. The walk's
+    length is what it measures, so the host checks for the end once every
+    ``LF_BLOCK`` steps (the JAX package checks after every step)."""
+    if n_strings == 0:
+        return np.zeros(0, dtype=np.int32)
+    dev = bwt.device
+    pos = torch.arange(n_strings, dtype=_I32, device=dev)
+    lengths = torch.zeros(n_strings, dtype=_I32, device=dev)
+    done = torch.zeros(n_strings, dtype=torch.bool, device=dev)
+    steps = 0
+    while True:
+        for _ in range(LF_BLOCK):
+            sym = bwt[pos.long()]
+            done |= sym == 0
+            lengths += (~done).to(_I32)
+            s = torch.where(done, 0, sym)
+            new_pos = lf_step(packed.table, packed.starts, s, pos)
+            pos = torch.where(done, pos, new_pos)
+        steps += LF_BLOCK
+        if bool(done.all()):
+            return lengths.cpu().numpy()
+        if steps > packed.n:  # a cycle that never meets '$'
+            raise ValueError("not a multi-string BWT: a terminator walk did not close")
+
+
+def read_lengths_from_bwt(index: OccIndex, n_strings: int,
+                          packed: PackedOccIndex | None = None) -> np.ndarray:
+    """Recover each string's length from a BWT by LF-walking backwards from
+    every terminator rotation (rows 0..n_strings-1) until the '$' closes the
+    cycle. Vectorized over all strings on the index's device; ``packed`` is
+    the index's packed table (derived when not given).
+
+    >>> from rust_msbwt_tpu_torch.ops.alphabet import convert_stoi
+    >>> from rust_msbwt_tpu_torch.ops.rank import build_occ_index
+    >>> idx = build_occ_index(convert_stoi("TAC$GATCG$"), device="cpu")
+    >>> read_lengths_from_bwt(idx, 2).tolist()  # ACGT, TGCA
+    [4, 4]
+    """
+    return _read_lengths(index.bwt, _packed_of(index, packed), n_strings)
+
+
+def _cyclic_steps(lengths: np.ndarray, base_rot_max: int, L: int):
+    """Per-read LF step counts of the cyclic search (a whole number of
+    cycles of ``'$' + S``, longer than the base's longest rotation plus the
+    read's own period: Fine–Wilf) and the loop bound (host ints)."""
+    m = lengths.astype(np.int64) + 1
+    steps = (-(-int(base_rot_max) // m) + 1) * m
+    t_total = int(base_rot_max) + 2 * (L + 1)
+    return steps.astype(np.int32), min(int(steps.max()), t_total)
+
+
+def _terminator_positions_impl(table, starts, n: int, cols, lengths, steps, n_steps: int):
+    """Batched *cyclic* backward search: the true rotation-order rank of each
+    new read's terminator rotation among the existing rotations.
+
+    The reference's insertion-point search walks the finite read once (ref:
+    src/dynamic_bwt.rs:311-331) and resolves terminator ties through its
+    sequential update order. A batched builder needs the true cyclic rank
+    directly, so the pattern ``('$' + S)`` repeated is backward-searched
+    until it is longer than any existing rotation's period plus the read's
+    own (Fine–Wilf: two distinct periodic sequences differ within the sum
+    of their periods). Read i takes ``steps[i]`` LF steps — whole cycles,
+    so its walk ends on a '$' step and the running upper bound is the rank.
+
+    Step t reads cycle index ``(len - t) mod (len + 1)`` right to left, which
+    in the stage view is ``cols[(t mod (len + 1)) + 1, i]`` (row len + 1 is
+    the '$'). No host sync: the loop bound ``n_steps`` is a host int.
+    """
+    N = lengths.shape[0]
+    dev = cols.device
+    pos = torch.full((N,), n, dtype=_I32, device=dev)
+    m = lengths.long() + 1
+    col = torch.arange(N, device=dev)
+    for t in range(n_steps):
+        sym = cols[t % m + 1, col]
+        new_pos = lf_step(table, starts, sym, pos)
+        pos = torch.where(t < steps, new_pos, pos)
+    return pos
+
+
+def terminator_positions(index: OccIndex, reads, lengths, base_rot_max: int,
+                         packed: PackedOccIndex | None = None) -> torch.Tensor:
+    """Terminator-rotation ranks (int32, on the index's device) of a batch of
+    new reads (``[N, L]`` u8, ``[N]`` i32, host arrays) against an existing
+    BWT. ``base_rot_max`` must be >= the longest rotation (read length + 1)
+    present in the base.
+
+    >>> from rust_msbwt_tpu_torch.ops.alphabet import convert_stoi
+    >>> from rust_msbwt_tpu_torch.ops.rank import build_occ_index
+    >>> idx = build_occ_index(convert_stoi("TAC$GATCG$"), device="cpu")
+    >>> reads, lens = encode_reads([convert_stoi("C"), convert_stoi("T")])
+    >>> terminator_positions(idx, reads, lens, 5).tolist()  # both: $ACGT < . < $TGCA
+    [1, 1]
+    """
+    from rust_msbwt_tpu_torch.utils.native import reads_to_cols_native
+
+    packed = _packed_of(index, packed)
+    reads = np.asarray(reads, dtype=np.uint8)
+    lengths = np.asarray(lengths, dtype=np.int32)
+    cols = reads_to_cols_native(reads, lengths)
+    if cols is None:
+        cols = reads_to_cols(reads, lengths)
+    dev = packed.table.device
+    steps, n_steps = _cyclic_steps(lengths, base_rot_max, reads.shape[1])
+    return _terminator_positions_impl(
+        packed.table, packed.starts, packed.n, torch.from_numpy(cols).to(dev),
+        torch.from_numpy(lengths).to(dev), torch.from_numpy(steps).to(dev), n_steps,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -202,20 +345,84 @@ def bucket_schedule(n0: int, N: int, L: int, n_cap: int,
     return buckets
 
 
-def _build_device(p: dict, device, merge):
-    """Run stage 1 and the bucketed stage loop on ``device``. Returns the
-    final buffer (uint8 [aligned n_cap], PAD past n_cap), its packed table
-    (int32 [aligned n_cap / 128 + 1, 32]) and the symbol counts."""
-    N, L, n_cap = p["N"], p["L"], p["n_cap"]
-    buckets = bucket_schedule(0, N, L, n_cap, BIN)
+def index_from_symbols(sym: torch.Tensor, *, merge=merge_insert
+                       ) -> tuple[OccIndex, PackedOccIndex]:
+    """Both query indexes of a decoded BWT on its device, through one merge
+    pass with no inserts (the kernel on the card: it writes the packed table
+    of the buffer it copies). Equal to ``build_occ_index`` + ``pack_index``.
+
+    >>> from rust_msbwt_tpu_torch.ops.alphabet import convert_stoi
+    >>> idx, packed = index_from_symbols(torch.from_numpy(convert_stoi("TAC$GATCG$")))
+    >>> idx.n, idx.starts.tolist(), tuple(packed.table.shape)
+    (10, [0, 2, 4, 6, 8, 8, 10], (2, 32))
+    """
+    n = int(sym.shape[0])
+    if n >= 2**31:
+        raise ValueError("single-device index limited to 2^31-1 symbols")
+    dev = sym.device
+    old = torch.full((max(1, -(-n // BIN)) * BIN,), PAD, dtype=torch.uint8, device=dev)
+    old[:n] = sym
+    none = torch.zeros(0, dtype=_I32, device=dev)
+    bwt, table, _ = merge_insert_slots(old, none, none, none.bool(), merge=merge)
+    starts = starts_from_counts(table[-1, :VC_LEN])
+    return (OccIndex(bwt=bwt, occ=table[:, :VC_LEN].contiguous(), starts=starts, n=n),
+            PackedOccIndex(table=table, starts=starts, n=n))
+
+
+def _packed_of(index: OccIndex, packed: PackedOccIndex | None) -> PackedOccIndex:
+    """``packed`` when the caller holds it, else the index's packed table
+    (through ``index_from_symbols``)."""
+    if packed is not None:
+        return packed
+    return index_from_symbols(index.bwt[: index.n])[1]
+
+
+def _stage1_slots(p: dict, cols, lengths, base, base_index, base_rot_max, merge):
+    """Stage-1 slots (new coordinates) of every read's last symbol: each
+    earlier read of the batch occupies one slot first."""
+    N, n0 = p["N"], p["n0"]
+    ar = torch.arange(N, dtype=_I32, device=cols.device)
+    if not p["sorted"]:  # chronological: after every existing terminator
+        return ar + p["base_strings"]
+    if n0 == 0:  # sorted rank == read index after the host sort
+        return ar
+    if base_index is None:
+        _, base_index = index_from_symbols(base, merge=merge)
+    if base_rot_max is None:
+        base_rot_max = int(_read_lengths(base, base_index, p["base_strings"]).max()) + 1
+    steps, n_steps = _cyclic_steps(p["lengths"], base_rot_max, p["L"])
+    base_pos = _terminator_positions_impl(
+        base_index.table, base_index.starts, n0, cols, lengths,
+        torch.from_numpy(steps).to(cols.device), n_steps,
+    )
+    return base_pos + ar
+
+
+def _build_device(p: dict, device, merge, base=None, base_index=None,
+                  base_rot_max=None):
+    """Run stage 1 and the bucketed stage loop on ``device``, onto ``base``
+    (uint8 tensor of ``p["n0"]`` symbols; ``base_index`` its packed index
+    when the caller holds it). Returns the final buffer (uint8
+    [aligned n_cap], PAD past n_cap), its packed table (int32
+    [aligned n_cap / 128 + 1, 32]) and the symbol counts."""
+    N, L, n0, n_cap = p["N"], p["L"], p["n0"], p["n_cap"]
+    cols = torch.from_numpy(p["cols"]).to(device)
+    lengths = torch.from_numpy(p["lengths"]).to(device)
+    # the base's slots first: its index (when derived here) is freed before
+    # the build's buffers are allocated
+    q1 = _stage1_slots(p, cols, lengths, base, base_index, base_rot_max, merge)
+    buckets = bucket_schedule(n0, N, L, n_cap, BIN)
     full_cap = buckets[-1][2]
     bufs = [torch.full((full_cap,), PAD, dtype=torch.uint8, device=device)
             for _ in range(2)]
     table = torch.empty((full_cap // BIN + 1, ROW), dtype=_I32, device=device)
     ins = torch.empty(full_cap + 1, dtype=torch.int8, device=device)
     tmap = torch.empty(full_cap, dtype=_I32, device=device)
-    cols = torch.from_numpy(p["cols"]).to(device)
-    lengths = torch.from_numpy(p["lengths"]).to(device)
+    counts = torch.zeros(VC_LEN, dtype=_I32, device=device)
+    if n0:
+        bufs[0][:n0] = base
+        # six compare-sums: no [n0]-sized int64 temporary
+        counts = torch.stack([(base == s).sum(dtype=_I32) for s in range(VC_LEN)])
 
     def run_pass(src, cap, q, v, active):
         dst = 1 - src
@@ -225,38 +432,47 @@ def _build_device(p: dict, device, merge):
         )
         return dst, m
 
-    # stage 1: every read's last symbol at its terminator slot (arrival or
-    # sorted rank == read index after the host sort)
-    cap = buckets[0][2]  # covers stage 1 too (N <= cap)
-    P = torch.arange(N, dtype=_I32, device=device)
+    # stage 1: every read's last symbol at its terminator slot
+    cap = buckets[0][2]  # covers stage 1 too (n0 + N <= cap)
     prev_v = cols[1]
     active = lengths >= 0
-    cur, n_valid = run_pass(0, cap, P, prev_v, active)
-    counts = _bump_counts(torch.zeros(VC_LEN, dtype=_I32, device=device), prev_v, active)
+    cur, m = run_pass(0, cap, q1, prev_v, active)
+    n_valid = m + n0
+    P = q1
+    counts = _bump_counts(counts, prev_v, active)
+    n_strings_total = p["n_strings_total"]
     for ja, jb, cap in buckets:
         tab = table[: cap // BIN + 1]
         for j in range(ja, jb):
             active = j <= lengths + 1
             v = cols[j]
             f = prev_v.long()
-            q = _cvec(counts, N)[f] + rank_packed(tab, f, P)
+            q = lf_step(tab, _cvec(counts, n_strings_total), f, P)
             cur, m = run_pass(cur, cap, q, v, active)
             n_valid = n_valid + m
             P = torch.where(active, q, P)
             counts = _bump_counts(counts, v, active)
             prev_v = torch.where(active, v, prev_v)
-    if int(n_valid) != n_cap:  # the one host sync of the build
+    if int(n_valid) != n_cap:  # the one host sync of the stage loop
         raise RuntimeError(f"build inserted {int(n_valid)} symbols, expected {n_cap}")
     return bufs[cur], table, counts
 
 
 def build_msbwt_with_index(reads: np.ndarray, lengths: np.ndarray,
-                           sorted_insert: bool = True, base=None, *, device,
+                           sorted_insert: bool = True, base=None,
+                           base_string_count: int = 0,
+                           base_rot_max: int | None = None, *, device,
+                           base_index: PackedOccIndex | None = None,
                            merge=merge_insert) -> tuple[OccIndex, PackedOccIndex]:
-    """Construct an MSBWT on ``device`` and return its query indexes without
-    leaving the device: ``(OccIndex, PackedOccIndex)``.
+    """Construct (or extend) an MSBWT on ``device`` and return its query
+    indexes without leaving the device: ``(OccIndex, PackedOccIndex)``.
 
-    The packed table IS the one the last merge pass wrote, so deriving both
+    ``base`` is a decoded BWT to extend (host uint8 array or device tensor)
+    holding ``base_string_count`` strings whose longest rotation (read
+    length + 1) is ``base_rot_max`` (recovered by LF walk when ``None``);
+    ``base_index`` is the base's packed index when the caller holds it (the
+    sorted extend needs one and derives it otherwise). The packed table of
+    the result IS the one the last merge pass wrote, so deriving both
     indexes is slicing: ``OccIndex.occ`` is the table's lanes 0..5 and
     ``OccIndex.bwt`` the final buffer. ``merge`` is the pass function
     (default: the kernel wrapper; ``ops.merge_insert.merge_insert_plain``
@@ -268,11 +484,12 @@ def build_msbwt_with_index(reads: np.ndarray, lengths: np.ndarray,
     >>> idx.n, idx.bwt[: idx.n].tolist()
     (10, [5, 1, 2, 0, 3, 1, 5, 2, 3, 0])
     """
-    p = _prepare_build(reads, lengths, sorted_insert, base)
+    base = _base_symbols(base, device)
+    p = _prepare_build(reads, lengths, sorted_insert, int(base.shape[0]),
+                       base_string_count)
     if p is None:
-        idx = build_occ_index(np.zeros(0, np.uint8), device=device)
-        return idx, pack_index(idx)
-    buf, table, counts = _build_device(p, device, merge)
+        return index_from_symbols(base, merge=merge)
+    buf, table, counts = _build_device(p, device, merge, base, base_index, base_rot_max)
     n = p["n_cap"]
     # the last bucket runs at aligned(n), so buf is [ceil(n/128) * 128] and
     # table is [ceil(n/128) + 1, 32] with the totals in its terminal row
@@ -282,16 +499,26 @@ def build_msbwt_with_index(reads: np.ndarray, lengths: np.ndarray,
 
 
 def build_msbwt(reads: np.ndarray, lengths: np.ndarray, sorted_insert: bool = True,
-                base=None, *, device) -> np.ndarray:
-    """Construct an MSBWT on ``device``; returns the decoded BWT (host uint8
-    [n]). ``sorted_insert=True`` == reference ``insert_string(s, true)``
-    batch; ``False`` == chronological insertion.
+                base=None, base_string_count: int = 0,
+                base_rot_max: int | None = None, *, device,
+                device_out: bool = False, base_index: PackedOccIndex | None = None):
+    """Construct (or extend) an MSBWT on ``device``; returns the decoded BWT
+    (host uint8 [n], or the device tensor with ``device_out=True``).
+    ``sorted_insert=True`` == reference ``insert_string(s, true)`` batch;
+    ``False`` == chronological insertion; ``base`` == a decoded BWT to
+    extend (load-and-add flow), as in ``build_msbwt_with_index``.
 
     >>> from rust_msbwt_tpu_torch.ops.alphabet import convert_itos, convert_stoi
     >>> reads, lens = encode_reads([convert_stoi("TGCA"), convert_stoi("ACGT")])
     >>> convert_itos(build_msbwt(reads, lens, device="cpu"))
     'TAC$GATCG$'
+    >>> more, mlens = encode_reads([convert_stoi("CAT")])
+    >>> convert_itos(build_msbwt(more, mlens, base=convert_stoi("TAC$GATCG$"),
+    ...                          base_string_count=2, device="cpu"))
+    'TTAC$CG$ATCGA$'
     """
     idx, _ = build_msbwt_with_index(reads, lengths, sorted_insert, base,
-                                    device=device)
-    return idx.bwt[: idx.n].cpu().numpy()
+                                    base_string_count, base_rot_max,
+                                    device=device, base_index=base_index)
+    out = idx.bwt[: idx.n]
+    return out if device_out else out.cpu().numpy()

@@ -50,7 +50,9 @@ class PackedOccIndex(NamedTuple):
 
 
 def pack_index(index: OccIndex) -> PackedOccIndex:
-    """Build the packed table from an ``OccIndex`` (one pass, on its device).
+    """Build the packed table from an ``OccIndex`` (one pass, on its device,
+    in plain PyTorch; the port derives a decoded BWT's indexes through
+    ``ops.bcr.index_from_symbols`` and keeps this as the reference).
 
     >>> from rust_msbwt_tpu_torch.ops.alphabet import convert_stoi
     >>> from rust_msbwt_tpu_torch.ops.rank import build_occ_index
@@ -102,6 +104,15 @@ def rank_packed(table: torch.Tensor, sym: torch.Tensor, pos: torch.Tensor) -> to
     shift = (r[:, None] - j32).clamp(0, 32)
     bits = (match.long() & 0xFFFFFFFF) & ((1 << shift) - 1)
     return occ_base + popcount(bits).sum(1, dtype=_I32)
+
+
+def lf_step(table: torch.Tensor, starts: torch.Tensor, sym: torch.Tensor,
+            pos: torch.Tensor) -> torch.Tensor:
+    """One batched LF step, ``starts[sym] + rank(sym, pos)`` (int32). For
+    ``sym == bwt[pos]`` it is the LF mapping of row ``pos``; for a pattern
+    symbol, one bound of a backward search. Every LF walk of the port and
+    the build's per-stage slot take this step."""
+    return starts[sym.long()] + rank_packed(table, sym, pos)
 
 
 def _kmer_ranges_packed_impl(table, starts, n: int, kmers: torch.Tensor,

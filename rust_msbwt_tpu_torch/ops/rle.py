@@ -1,20 +1,19 @@
-"""L1 — the RLE byte-stream codec (vectorized numpy, host-side).
+"""L1 — the RLE byte-stream codec: vectorized numpy on the host, plus the
+device-side decode in torch.
 
-The numpy half of the JAX package's ``ops.rle``, copied so that this package
-never imports jax. Format contract (ref: src/bwt_converter.rs:53-56,163-168;
+Port of the JAX package's ``ops.rle`` (its numpy half copied so that this
+package never imports jax). Format contract (ref: src/bwt_converter.rs:53-56,163-168;
 decoder semantics at src/rle_bwt.rs:360-371): each byte = ``symbol (low 3
 bits) | count_digit << 3`` with ``count_digit in [0, 31]``. A run's count is
 emitted as little-endian base-32 digits, one byte per digit, every byte
 carrying the SAME symbol; a decoder treats consecutive same-symbol bytes as a
 single run. Encoders assume no two consecutive runs share a symbol.
-
-The device-side decode (``decode_symbols_device``) is not ported yet: the
-port's ``RleBWT`` decodes on the host and uploads the symbols.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from rust_msbwt_tpu_torch.ops.alphabet import COUNT_MASK, LETTER_BITS, MASK, VC_LEN
 
@@ -95,6 +94,58 @@ def decode_symbols(rle: np.ndarray) -> np.ndarray:
         return native
     syms, counts = runs_from_bytes(rle)
     return np.repeat(syms, counts.astype(np.int64))
+
+
+def encode_symbols(decoded: np.ndarray) -> np.ndarray:
+    """Decoded symbols -> RLE bytes: the native host encoder when available,
+    else ``bytes_from_runs(*runs_from_symbols(decoded))`` (same bytes).
+
+    >>> encode_symbols(np.array([5, 1, 2, 0], np.uint8)).tolist()
+    [13, 9, 10, 8]
+    """
+    from rust_msbwt_tpu_torch.utils.native import rle_encode_native
+
+    native = rle_encode_native(np.asarray(decoded, dtype=np.uint8))
+    if native is not None:
+        return native
+    return bytes_from_runs(*runs_from_symbols(decoded))
+
+
+def decode_symbols_device(rle: np.ndarray, n: int | None = None, *,
+                          device) -> torch.Tensor:
+    """Decode RLE bytes into the flat symbol array ON ``device`` (uint8 [n]).
+
+    The upload carries the COMPRESSED bytes and the host never holds the
+    decoded array. Every byte contributes its base-32 digit term
+    ``digit << 5k`` (k = its index within the run, found by a ``cummax`` of
+    run starts); all bytes of a run carry the same symbol, so one
+    ``repeat_interleave`` of per-byte terms composes exactly the runs, in
+    order. ``n`` is the decoded length (``rle_meta``'s); ``None`` takes it
+    from the terms on the device (one host sync).
+
+    >>> decode_symbols_device(np.array([13, 9, 25, 10], np.uint8), device="cpu")[:4].tolist()
+    [5, 1, 1, 1]
+    """
+    rle = np.ascontiguousarray(rle, dtype=np.uint8)
+    if n is not None and n >= 2**31:
+        raise ValueError("decode_symbols_device requires n < 2^31")
+    if rle.size == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=device)
+    raw = torch.from_numpy(rle).to(device)
+    sym = raw & MASK
+    ar = torch.arange(raw.shape[0], device=raw.device)
+    boundary = torch.ones_like(sym, dtype=torch.bool)
+    boundary[1:] = sym[1:] != sym[:-1]
+    run_start = torch.cummax(torch.where(boundary, ar, 0), 0).values
+    # digit index within the run; <= 6 for any count < 2^31 (7 base-32
+    # digits), clamped so corrupt input cannot shift past 64 bits
+    k = (ar - run_start).clamp_(max=6)
+    term = (raw >> LETTER_BITS).long() << (5 * k)
+    total = int(term.sum())
+    if total >= 2**31 or (n is not None and total != n):
+        raise ValueError(f"RLE bytes decode to {total} symbols, expected "
+                         f"{n if n is not None else '< 2^31'}")
+    return torch.repeat_interleave(sym, term, output_size=total)
 
 
 def _run_aligned_bounds(rle: np.ndarray, chunk: int):

@@ -2,8 +2,8 @@
 
 The parity tests run the JAX package and the port on the same input and
 compare what each computes; these converters put both on the port's
-logical layout (``uint8`` buffer, ``PackedOccIndex`` table). They take
-numpy arrays only, so this module imports no jax.
+logical layout (``uint8`` buffer, ``PackedOccIndex`` table). They read
+numpy arrays (and plain attributes) only, so this module imports no jax.
 """
 
 from __future__ import annotations
@@ -63,3 +63,16 @@ def state_from_jax_phys(phys, table_phys, counts, n_cap: int, *, cs: int = 128,
     table = np.where(table >= 2**31, table - 2**32, table).astype(np.int32)
     return _t(buf, np.uint8, device), _t(table, np.int32, device)
 
+
+def dynamic_from_jax(jdyn, device="cpu"):
+    """A JAX ``DynamicBWT`` -> the port's, with the same extend state: the
+    materialized base (decoded symbols), its string count and max read
+    length (``None`` == unknown), and the queued inserts. Extending both
+    with the same strings gives the same BWT."""
+    from rust_msbwt_tpu_torch.models.dynamic import DynamicBWT
+
+    port = DynamicBWT.from_decoded(np.asarray(jdyn._base, dtype=np.uint8), device=device)
+    port._base_strings = int(jdyn._base_strings)
+    port._max_read_len = jdyn._max_read_len
+    port._pending = [(np.asarray(a, dtype=np.uint8), bool(f)) for a, f in jdyn._pending]
+    return port

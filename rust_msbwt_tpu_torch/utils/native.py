@@ -118,6 +118,8 @@ def parse_fastx_native(path: str):
         raise ValueError(f"{path}: FASTX parse failed (code {rc})")
     try:
         n, t = n_reads.value, total.value
+        if n == 0:  # no records: the library may hand back NULL buffers
+            return []
         seq = np.ctypeslib.as_array(seq_p, shape=(max(t, 1),))[:t].copy()
         offs = np.ctypeslib.as_array(offs_p, shape=(n + 1,)).copy()
     finally:

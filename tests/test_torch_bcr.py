@@ -101,12 +101,6 @@ def test_build_empty_matches_jax():
     assert np.array_equal(packed.table.numpy(), np.asarray(jpacked.table))
 
 
-def test_extend_is_deferred():
-    reads, lengths = bcr.encode_reads([convert_stoi("ACGT")])
-    with pytest.raises(NotImplementedError):
-        bcr.build_msbwt(reads, lengths, base=convert_stoi("T$"), device="cpu")
-
-
 @pytest.mark.parametrize("cache_k", [0, 3])
 def test_count_kmers_on_build_matches_jax(cache_k):
     reads_l = _reads("ragged", seed=11)
@@ -136,6 +130,17 @@ def test_bucket_schedule_matches_jax(N, L, n_cap, chunk):
         0, N, L, n_cap, chunk, growth=1.3)
 
 
+@pytest.mark.parametrize("kind", ["equal", "ragged"])
+def test_encode_reads_matches_jax(kind):
+    reads_l = _reads(kind, seed=9)
+    got, want = bcr.encode_reads(reads_l), jbcr.encode_reads(reads_l)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    bad = reads_l[:3] + [np.concatenate([reads_l[3][:5], [0], reads_l[3][6:]])]
+    for encode in (bcr.encode_reads, jbcr.encode_reads):
+        with pytest.raises(ValueError):
+            encode(bad)
+
+
 def test_host_prep_matches_jax():
     reads_l = _reads("ragged", seed=5)
     reads, lengths = bcr.encode_reads(reads_l)
@@ -161,19 +166,6 @@ def test_dynamic_bwt_matches_jax(sorted_insert):
     assert port.count_kmer(kmers[0]) == ref.count_kmer(kmers[0])
     port.enable_kmer_cache(2)
     assert np.array_equal(port.count_kmers(kmers), ref.count_kmers(kmers))
-
-
-def test_dynamic_bwt_extend_is_deferred():
-    bwt = DynamicBWT(device="cpu")
-    bwt.insert_string("ACGT", True)
-    bwt.to_vec()
-    with pytest.raises(NotImplementedError):
-        bwt.insert_string("TTA", True)
-    mixed = DynamicBWT(device="cpu")
-    mixed.insert_string("ACGT", True)
-    mixed.insert_string("TTA", False)
-    with pytest.raises(NotImplementedError):
-        mixed.to_vec()
 
 
 def test_create_from_fastx_golden():

@@ -1,6 +1,7 @@
 """Card tests of the port's merge-insert kernel: the CUDA kernel against its
 plain PyTorch twin on the same CUDA tensors, bit-exact (tolerance 0: every
-output is an integer).
+output is an integer) — one pass, a build, an extend build onto a non-empty
+base, and a streamed build.
 
 Marked ``gpu``; without a card every test skips (the decision is made in a
 fixture, never at import time). This file imports no jax, so it runs on a
@@ -19,6 +20,7 @@ from rust_msbwt_tpu_torch.ops.merge_insert import (
     merge_insert,
     merge_insert_plain,
 )
+from rust_msbwt_tpu_torch.utils.streaming import StreamingBuilder
 
 pytestmark = pytest.mark.gpu
 
@@ -98,3 +100,40 @@ def test_build_kernel_matches_plain(cuda, sorted_insert):
     assert torch.equal(idx_k.bwt, idx_p.bwt)
     assert torch.equal(pk.table, pp.table)
     assert torch.equal(idx_k.occ, idx_p.occ)
+
+
+def _ragged(n, seed):
+    r = np.random.default_rng(seed)
+    return encode_reads([r.integers(1, 6, r.integers(1, 60)).astype(np.uint8)
+                         for _ in range(n)])
+
+
+@pytest.mark.parametrize("sorted_insert", [True, False])
+def test_extend_kernel_matches_plain(cuda, sorted_insert):
+    base_reads, base_lens = _ragged(2000, 23)
+    base, base_packed = build_msbwt_with_index(base_reads, base_lens, device=cuda)
+    reads, lengths = _ragged(1500, 24)
+    out = {}
+    for name, merge in (("kernel", merge_insert), ("plain", merge_insert_plain)):
+        before = merge_insert.launches
+        out[name] = build_msbwt_with_index(
+            reads, lengths, sorted_insert, base.bwt[: base.n], 2000,
+            device=cuda, merge=merge)
+        launched = merge_insert.launches - before
+        assert launched > 0 if name == "kernel" else launched == 0
+    (idx_k, pk), (idx_p, pp) = out["kernel"], out["plain"]
+    assert torch.equal(idx_k.bwt, idx_p.bwt)
+    assert torch.equal(pk.table, pp.table)
+    assert idx_k.n == base.n + int(lengths.sum()) + 1500
+
+
+def test_streamed_build_kernel_matches_plain(cuda):
+    reads, lengths = _ragged(3000, 25)
+    b = StreamingBuilder(device=cuda)
+    before = merge_insert.launches
+    for i in range(0, 3000, 700):
+        b.add_batch(reads[i: i + 700], lengths[i: i + 700])
+    assert merge_insert.launches > before
+    idx_p, _ = build_msbwt_with_index(reads, lengths, device=cuda,
+                                      merge=merge_insert_plain)
+    assert torch.equal(b.finish(device_out=True), idx_p.bwt[: idx_p.n])

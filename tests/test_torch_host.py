@@ -165,6 +165,7 @@ def test_native_library_builds_in_port_dir():
 _DOCTEST_MODULES = [
     "ops.rle", "ops.rank", "ops.packed_rank", "ops.bcr", "models.core",
     "models.dynamic", "models.rle_bwt", "utils.npy", "utils.fastx", "utils.checks",
+    "ops.extract", "utils.streaming",
 ]
 
 

@@ -20,6 +20,8 @@ for name in names:
     importlib.import_module(name)
 assert not any(m == "jax" or m.startswith(("jax.", "rust_msbwt_tpu."))
                for m in sys.modules if sys.modules[m] is not None), "jax leaked"
+for name in ("ops.extract", "utils.streaming", "cli.extract"):
+    assert pkg.__name__ + "." + name in names, name
 
 from rust_msbwt_tpu_torch.cli.build import main
 out = os.path.join(tempfile.mkdtemp(), "out.npy")
@@ -37,4 +39,4 @@ def test_port_imports_no_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("OK")
-    assert int(res.stdout.split()[1]) >= 19  # every module was walked
+    assert int(res.stdout.split()[1]) >= 22  # every module was walked
