@@ -36,7 +36,17 @@ Phases:
   9. recovery on phase 6's index: 100k reads extracted must equal those
      rows of the sorted reads; every hit of 1,000 located 21-mers must be
      where it says, with as many hits per query as phase 6 counted
- 10. one JSON line of kernel results, then ``{"ok": true, "device": ...}``
+ 10. query tiers on phase 6's index and reads: the pair index, 6^9 and
+     6^11 prefix caches and the run tier (from phase 6's RLE bytes), each
+     built and timed; the 1M 21-mers counted through pair + 6^8, pair +
+     6^9, pair + 6^11, run + 6^8 and packed + 6^9 must equal phase 6's
+     counts. Then ``RleBWT.load_numpy_file`` of phase 6's BWT (counts reset
+     just before) must pick pair + 6^9 by itself, launch the merge kernel
+     and give the same counts; its query pack saved and loaded into a fresh
+     engine gives them again. Last, 10,000 reads with one substitution each
+     (an A, C, G or T turned into another of the four) must all come back
+     equal to the originals from ``correct_reads(k=21, tau=2)`` on the card
+ 11. one JSON line of kernel results, then ``{"ok": true, "device": ...}``
 """
 
 from __future__ import annotations
@@ -51,6 +61,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_READS, READ_LEN, K, N_QUERIES, N_CHECK = 5_000_000, 100, 21, 1_000_000, 20_000
 BATCH, N_EXTRACT, N_LOCATE = 1_000_000, 100_000, 1_000
+N_CORRECT = 10_000
+DEEP_K = 11  # the deepest prefix cache phase 10 builds
 
 
 def log(msg: str) -> None:
@@ -244,6 +256,18 @@ def phase_extend_10k(torch, np, dev):
         "csrc/msbwt_baseline.cpp over all 20k reads")
 
 
+def median_s(torch, fn, reps=3):
+    """Median wall seconds of ``fn()`` over ``reps`` calls (each ends in a
+    host copy of its result, so no extra synchronize is needed)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2], out
+
+
 def phase_main(torch, np, dev, reads, lengths, kmers):
     """Phase 6: the 505M main path through the kernel, then checks."""
     from rust_msbwt_tpu_torch.ops.bcr import build_msbwt_with_index
@@ -270,15 +294,11 @@ def phase_main(torch, np, dev, reads, lengths, kmers):
     cache = build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 8)
     torch.cuda.synchronize()
     cache_s = time.perf_counter() - t0
-    q_times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        counts = count_kmers_packed(packed, kmers, cache=cache, cache_k=8)
-        q_times.append(time.perf_counter() - t0)
+    q_s, counts = median_s(torch, lambda: count_kmers_packed(packed, kmers, cache=cache,
+                                                             cache_k=8))
     launches = merge_insert.launches
     # --- end of the main path ---
 
-    q_s = sorted(q_times)[1]
     log(f"[main] build+index {build_s:.3f} s for {idx.n} symbols -> "
         f"{n_bases / build_s / 1e6:.2f} Mbases/s; peak device memory "
         f"{peak / 2**30:.2f} GiB; merge kernel launches {launches}")
@@ -311,7 +331,7 @@ def phase_main(torch, np, dev, reads, lengths, kmers):
           f"{N_CHECK} counts != native reference query loop")
     log(f"[main] {N_CHECK} counts equal csrc/msbwt_baseline.cpp "
         f"({base_s:.2f} s incl. its index build)")
-    return launches, idx, packed, counts
+    return launches, idx, packed, counts, cache, rle
 
 
 def phase_stream(torch, np, dev, reads, lengths, idx, ckpt):
@@ -461,6 +481,119 @@ def phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts):
         "checked, hits per query == phase 6 counts")
 
 
+def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8, rle, d):
+    """Phase 10: the query side at 505M on phase 6's index and reads."""
+    from rust_msbwt_tpu_torch.apps.correct import correct_reads
+    from rust_msbwt_tpu_torch.models.rle_bwt import RleBWT
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+    from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
+    from rust_msbwt_tpu_torch.ops.pair_rank import build_pair_index, count_kmers_pair
+    from rust_msbwt_tpu_torch.ops.rank import build_kmer_cache
+    from rust_msbwt_tpu_torch.ops.run_rank import (
+        build_kmer_cache_runs,
+        build_run_index_from_bytes,
+        count_kmers_runs,
+    )
+    from rust_msbwt_tpu_torch.utils.npy import save_bwt_bytes
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    torch.cuda.reset_peak_memory_stats()
+    pair_s, pair = timed(lambda: build_pair_index(idx))
+    c9_s, cache9 = timed(lambda: build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 9))
+    c11_s, cache11 = timed(lambda: build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n,
+                                                    DEEP_K))
+    run_s, run = timed(lambda: build_run_index_from_bytes(rle, device=dev))
+    rc8_s, rcache8 = timed(lambda: build_kmer_cache_runs(run, 8))
+    check(torch.equal(rcache8.lo, cache8.lo) and torch.equal(rcache8.hi, cache8.hi),
+          "run-tier 6^8 cache != occ-index 6^8 cache")
+    log(f"[tiers] pair index {pair_s:.3f} s ({nbytes(pair.table2) / 2**30:.3f} GiB); "
+        f"6^9 cache {c9_s:.3f} s ({nbytes(cache9.lo, cache9.hi) / 2**30:.3f} GiB); "
+        f"6^{DEEP_K} cache {c11_s:.3f} s ({nbytes(cache11.lo, cache11.hi) / 2**30:.3f} GiB); "
+        f"run tier {run_s:.3f} s from {rle.size} RLE bytes ({run.device_bytes() / 2**30:.3f} "
+        f"GiB, {int(run.table.shape[0]) - 2} rows); run-tier 6^8 cache {rc8_s:.3f} s "
+        f"(== the occ-index 6^8 cache); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    legs = [
+        ("pair + 6^8", lambda: count_kmers_pair(pair, kmers, cache=cache8, cache_k=8)),
+        ("pair + 6^9", lambda: count_kmers_pair(pair, kmers, cache=cache9, cache_k=9)),
+        (f"pair + 6^{DEEP_K}", lambda: count_kmers_pair(pair, kmers, cache=cache11,
+                                                        cache_k=DEEP_K)),
+        ("run + 6^8", lambda: count_kmers_runs(run, kmers, cache=rcache8, cache_k=8)),
+        ("packed + 6^9", lambda: count_kmers_packed(packed, kmers, cache=cache9, cache_k=9)),
+    ]
+    qps = {}
+    for name, fn in legs:
+        s, got = median_s(torch, fn)
+        check(np.array_equal(got, counts), f"{name} counts != phase 6 counts")
+        qps[name] = N_QUERIES / s
+        log(f"[tiers] 1M x {K}-mer counts, {name}: median {s:.4f} s -> {qps[name]:.0f} q/s "
+            "(host in/out included); equal to phase 6")
+    del cache11, run, rcache8
+
+    # RleBWT from disk: the tier policy picks pair + 6^9 by itself
+    npy = os.path.join(d, "bwt505.npy")
+    save_bwt_bytes(rle, npy)
+    torch.cuda.synchronize()
+    merge_insert.launches = 0
+    t0 = time.perf_counter()
+    bwt = RleBWT(device=dev)
+    bwt.load_numpy_file(npy)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = bwt.count_kmers(kmers)
+    first_s = time.perf_counter() - t0
+    launches = merge_insert.launches
+    tier_ok = bwt._pair_index is not None and bwt._cache_k == 9 and bwt._run_index is None
+    log(f"[tiers] RleBWT.load_numpy_file {load_s:.3f} s (npy read + the host pass over "
+        f"the RLE bytes); first count_kmers {first_s:.3f} s (device decode, index, pair "
+        f"index, 6^9 cache, 1M counts); tier pair + 6^{bwt._cache_k}; merge kernel "
+        f"launches {launches}")
+    check(tier_ok, "RleBWT did not pick pair + 6^9 at 505M")
+    check(launches >= 1, "RleBWT's load launched no merge kernel")
+    check(np.array_equal(got, counts), "RleBWT counts != phase 6 counts")
+    s, got = median_s(torch, lambda: bwt.count_kmers(kmers))
+    check(np.array_equal(got, counts), "RleBWT counts != phase 6 counts")
+    log(f"[tiers] RleBWT.count_kmers warm: median {s:.4f} s -> {N_QUERIES / s:.0f} q/s")
+    pack = os.path.join(d, "bwt505.pack")
+    save_s, _ = timed(lambda: bwt.save_query_indexes(pack))
+    del bwt
+    fresh = RleBWT(device=dev)
+    fresh.load_numpy_file(npy)
+    pack_s, _ = timed(lambda: fresh.load_query_indexes(pack))
+    got = fresh.count_kmers(kmers)
+    check(fresh._device_index is None, "the pack load re-derived the device index")
+    check(np.array_equal(got, counts), "counts after the pack load != phase 6 counts")
+    log(f"[tiers] query pack {os.path.getsize(pack)} bytes: save {save_s:.3f} s, "
+        f"load {pack_s:.3f} s (after the npy load); counts equal phase 6")
+
+    # correction: one substitution in each of 10,000 reads
+    rng = np.random.default_rng(0xC0EC7)
+    orig = reads[:N_CORRECT].copy()
+    bad = orig.copy()
+    dna = np.array([1, 2, 3, 5], np.uint8)
+    for i in range(N_CORRECT):
+        p = rng.choice(np.flatnonzero(orig[i] != 4))
+        bad[i, p] = rng.choice(dna[dna != orig[i, p]])
+    t0 = time.perf_counter()
+    fixed, n_fixed = correct_reads(fresh, bad, k=K, tau=2)
+    corr_s = time.perf_counter() - t0
+    n_equal = int((fixed == orig).all(axis=1).sum())
+    log(f"[tiers] correct_reads(k={K}, tau=2) of {N_CORRECT} reads: {corr_s:.3f} s -> "
+        f"{N_CORRECT / corr_s:.0f} reads/s; {n_fixed} bases fixed, {n_equal} reads equal "
+        "to their originals")
+    check(n_equal == N_CORRECT, "a corrected read differs from its original")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -493,13 +626,17 @@ def main() -> int:
     phase_10k(np, dev)
     phase_extend_10k(torch, np, dev)
     reads, lengths, kmers = ecoli_config(np)
-    launches, idx, packed, counts = phase_main(torch, np, dev, reads, lengths, kmers)
+    launches, idx, packed, counts, cache8, rle = phase_main(torch, np, dev, reads,
+                                                            lengths, kmers)
     with tempfile.TemporaryDirectory() as d:
         ckpt = os.path.join(d, "stream_ckpt.npy")
         launches_stream = phase_stream(torch, np, dev, reads, lengths, idx, ckpt)
         launches_load_extend = phase_load_extend(torch, np, dev, reads, lengths,
                                                  idx, ckpt)
     phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts)
+    with tempfile.TemporaryDirectory() as d:
+        launches_query = phase_query_tiers(torch, np, dev, reads, idx, packed, kmers,
+                                           counts, cache8, rle, d)
 
     print(json.dumps({"kernels": [{
         "name": "merge_insert",
@@ -509,6 +646,7 @@ def main() -> int:
         "launches": launches,
         "launches_stream": launches_stream,
         "launches_load_extend": launches_load_extend,
+        "launches_query": launches_query,
         "max_abs_err": max_err,
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],

@@ -15,10 +15,13 @@ timed. Then:
    (``ops.bcr._build_device``, stage-view upload included), then the whole
    entry point ``build_msbwt_with_index``. The first rep shows what the
    first build in a process costs over the later ones.
-2. Unless ``--no-profile``: one device stage loop and one 1M-query
-   ``count_kmers_packed`` batch (6^8 cache); then the last batch of the
-   streamed build (1M reads onto the 404M-symbol BWT of the first 4M): its
-   terminator walk alone (``_terminator_positions_impl`` on the stage view,
+2. Unless ``--no-profile``: one device stage loop, one 1M-query
+   ``count_kmers_packed`` batch (6^8 cache) and one 1M-query
+   ``count_kmers_pair`` batch (6^9 cache: the tier ``RleBWT`` picks at this
+   size; the pair index build is profiled and the cache build timed
+   first); then the last batch of the streamed build (1M reads onto the
+   404M-symbol BWT of the first 4M): its terminator walk alone
+   (``_terminator_positions_impl`` on the stage view,
    lengths and step counts already on the card, as the build runs it), its
    device stage loop (walk included) and its whole entry point
    (``build_msbwt_with_index`` with the base's index and bound given). Each
@@ -126,6 +129,7 @@ def main(argv=None) -> int:
     )
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
     from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
+    from rust_msbwt_tpu_torch.ops.pair_rank import build_pair_index, count_kmers_pair
     from rust_msbwt_tpu_torch.ops.rank import build_kmer_cache
 
     smi = card_line()
@@ -178,7 +182,20 @@ def main(argv=None) -> int:
         result["query"] = profiled(
             torch, lambda: count_kmers_packed(packed, kmers, cache=cache, cache_k=8),
             "1M queries", args.top)
-        del cache, idx, packed
+        del cache
+        result["pair_index"] = profiled(torch, lambda: build_pair_index(idx),
+                                        "pair index build", args.top)
+        pair = build_pair_index(idx)
+        cache9_s = wall_time(torch, lambda: build_kmer_cache(idx.bwt, idx.occ, idx.starts,
+                                                             idx.n, 9))
+        cache9 = build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 9)
+        log(f"[setup] 6^9 cache {cache9_s:.4f} s")
+        count_kmers_pair(pair, kmers, cache=cache9, cache_k=9)  # warm-up
+        result["query_pair"] = profiled(
+            torch, lambda: count_kmers_pair(pair, kmers, cache=cache9, cache_k=9),
+            "1M queries, pair + 6^9", args.top)
+        result["query_pair"]["cache9_s"] = cache9_s
+        del pair, cache9, idx, packed
         # the streamed build's last batch: 1M reads onto the first 4M's BWT
         n0_reads = N_READS - 1_000_000
         base, bpacked = build_msbwt_with_index(reads[:n0_reads], lengths[:n0_reads],

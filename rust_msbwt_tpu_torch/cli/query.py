@@ -1,12 +1,15 @@
 """``msbwt2-query`` on the port: batched k-mer counts from the command line.
 
     python -m rust_msbwt_tpu_torch.cli.query BWT.npy [KMER ...] [-i FILE|-]
-        [--cache-k K] [--locate] [--device cuda|cpu]
+        [--cache-k K] [--index-pack NPZ] [--max-mismatch D] [--locate]
+        [--device cuda|cpu]
 
 Loads a ``comp_msbwt.npy`` BWT, counts every k-mer given as arguments or
 one per line from a file/stdin, prints ``kmer<TAB>count``; with
 ``--locate`` also one ``kmer<TAB>read_id<TAB>offset`` line per occurrence.
-The JAX CLI's ``--max-mismatch`` and ``--index-pack`` are not ported yet.
+``--index-pack`` loads the derived query indexes from a pack when it
+exists (a bad pack exits 74) and saves them there otherwise;
+``--max-mismatch 1`` counts occurrences within Hamming distance 1.
 
 Exit codes follow the build CLI's convention (66 NOINPUT, 74 IOERR).
 """
@@ -18,6 +21,7 @@ import contextlib
 import logging
 import os
 import sys
+import zipfile
 
 EX_NOINPUT = 66
 EX_IOERR = 74
@@ -43,13 +47,23 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--cache-k", type=int, default=0, metavar="K",
-        help="precompute a 6^K prefix-range cache before querying (K <= 8)",
+        help="precompute a 6^K prefix-range cache before querying",
+    )
+    parser.add_argument(
+        "--index-pack", default=None, metavar="NPZ",
+        help="query-index sidecar: loaded if it exists, else derived "
+        "indexes are saved there for the next run",
     )
     parser.add_argument(
         "--locate", action="store_true",
         help="also print one 'kmer<TAB>read_id<TAB>offset' line per "
         "occurrence (read ids are lexicographic; the id space of "
         "msbwt2-extract)",
+    )
+    parser.add_argument(
+        "--max-mismatch", type=int, default=0, metavar="D", choices=(0, 1),
+        help="count occurrences within Hamming distance D (0 or 1; "
+        "D=1 resolves all single-substitution variants in one batch)",
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -85,8 +99,22 @@ def main(argv=None) -> int:
     except OSError as e:
         logger.error("Error loading BWT: %s", e)
         return EX_IOERR
-    if args.cache_k > 0:
+    pack_loaded = False
+    if args.index_pack and os.path.isfile(args.index_pack):
+        # np.load raises ValueError for bytes that are no zip, BadZipFile
+        # for a cut archive, KeyError for an npz without the pack's arrays:
+        # each is a bad pack, not a crash
+        try:
+            bwt.load_query_indexes(args.index_pack)
+            pack_loaded = True
+            logger.info("Loaded query indexes from %r", args.index_pack)
+        except (OSError, KeyError, ValueError, zipfile.BadZipFile) as e:
+            logger.error("Bad index pack: %s", e)
+            return EX_IOERR
+    pack_stale = False
+    if args.cache_k > 0 and bwt._cache_k != args.cache_k:
         bwt.enable_kmer_cache(args.cache_k)
+        pack_stale = True  # a new cache worth saving into the pack
 
     K = max(len(k) for k in kmers_txt)
     B = len(kmers_txt)
@@ -96,7 +124,16 @@ def main(argv=None) -> int:
         enc = convert_stoi(txt)
         kmers[i, K - len(enc):] = enc
         lengths[i] = len(enc)
-    counts = bwt.count_kmers(kmers, lengths)
+    if args.max_mismatch:
+        counts = bwt.count_kmers_approx(kmers, lengths, max_mismatch=args.max_mismatch)
+    else:
+        counts = bwt.count_kmers(kmers, lengths)
+    if args.index_pack and (not pack_loaded or pack_stale):
+        try:
+            bwt.save_query_indexes(args.index_pack)
+            logger.info("Saved query indexes to %r", args.index_pack)
+        except OSError as e:
+            logger.warning("Could not save index pack: %s", e)
     out = sys.stdout
     for txt, cnt in zip(kmers_txt, counts.tolist()):
         out.write(f"{txt}\t{cnt}\n")

@@ -1,12 +1,13 @@
 """L2 core — the shared BWT interface (port of the JAX package's
-``models.core``: ``BWTRange`` and the ``count_kmer`` / ``count_kmers`` part
-of ``BWTBase``).
+``models.core``).
 
 Mirrors the reference's ``BWT`` trait (ref: src/msbwt_core.rs:28-161):
 ``get_symbol_count``, ``get_total_size``, ``constrain_range`` and the default
 ``count_kmer`` backward-search loop (early exit on an empty range at
-:151-153). Also holds the host rank structure the engines' scalar queries
-share.
+:151-153), plus the batch extensions every engine gets on top of its
+``count_kmers``: ``kmer_profile``, ``count_kmers_bidirectional`` and
+``count_kmers_approx``. Also holds the host rank structure the engines'
+scalar queries share.
 """
 
 from __future__ import annotations
@@ -94,6 +95,93 @@ class BWTBase:
                 return 0
             rng = self.constrain_range(int(c), rng)
         return rng.h - rng.l
+
+    def kmer_profile(self, reads, k: int) -> np.ndarray:
+        """Counts of every length-``k`` window of each read: ``[B, L]`` int
+        reads -> ``[B, L - k + 1]`` counts, as one batched ``count_kmers``
+        (the error-correction primitive of the original msbwt).
+
+        >>> from rust_msbwt_tpu_torch.models.dynamic import DynamicBWT
+        >>> bwt = DynamicBWT(device="cpu")
+        >>> bwt.insert_strings(["ACGT", "TGCA"], sorted=True)
+        >>> bwt.kmer_profile(np.array([[1, 2, 3, 5]]), 2).tolist()  # AC CG GT
+        [[1, 1, 1]]
+        """
+        reads = np.asarray(reads, dtype=np.uint8)
+        if reads.ndim == 1:
+            reads = reads[None, :]
+        B, L = reads.shape
+        if not 1 <= k <= L:
+            raise ValueError(f"k={k} out of range for reads of length {L}")
+        w = L - k + 1
+        windows = np.lib.stride_tricks.sliding_window_view(reads, k, axis=1)
+        return self.count_kmers(windows.reshape(B * w, k)).reshape(B, w)
+
+    def count_kmers_bidirectional(self, kmers, lengths=None) -> np.ndarray:
+        """Forward + reverse-complement counts per k-mer (the double-stranded
+        convention of fmlrc-style correction; a palindrome counts twice).
+
+        >>> from rust_msbwt_tpu_torch.models.dynamic import DynamicBWT
+        >>> bwt = DynamicBWT(device="cpu")
+        >>> bwt.insert_strings(["ACGT", "TGCA"], sorted=True)
+        >>> bwt.count_kmers_bidirectional(np.array([[3, 2]])).tolist()  # GC
+        [2]
+        """
+        from rust_msbwt_tpu_torch.ops.alphabet import COMPLEMENT_INT
+
+        kmers = np.asarray(kmers, dtype=np.uint8)
+        if kmers.ndim == 1:
+            kmers = kmers[None, :]
+        B, K = kmers.shape
+        if lengths is None:
+            lengths = np.full(B, K, dtype=np.int32)
+        lengths = np.asarray(lengths, dtype=np.int32)
+        comp = COMPLEMENT_INT[kmers]
+        # reverse each row's right-aligned window, keeping right alignment
+        j = np.arange(K, dtype=np.int64)[None, :]
+        src = 2 * K - lengths[:, None] - 1 - j
+        valid = j >= (K - lengths[:, None])
+        rc = np.where(valid, np.take_along_axis(comp, np.clip(src, 0, K - 1), axis=1),
+                      0).astype(np.uint8)
+        counts = self.count_kmers(np.vstack([kmers, rc]), np.concatenate([lengths, lengths]))
+        return counts[:B] + counts[B:]
+
+    def count_kmers_approx(self, kmers, lengths=None, max_mismatch: int = 1) -> np.ndarray:
+        """Occurrences within Hamming distance ``max_mismatch`` (0 or 1): the
+        exact count plus the exact counts of every single substitution over
+        A C G N T, in one more batched ``count_kmers`` (each text window
+        matches exactly one variant, so the sum is exact).
+
+        >>> from rust_msbwt_tpu_torch.models.dynamic import DynamicBWT
+        >>> bwt = DynamicBWT(device="cpu")
+        >>> bwt.insert_strings(["ACGT", "AGGT"], sorted=True)
+        >>> int(bwt.count_kmers_approx(np.array([[1, 2, 3]]))[0])  # "ACG" +-1
+        2
+        """
+        kmers = np.asarray(kmers, dtype=np.uint8)
+        if kmers.ndim == 1:
+            kmers = kmers[None, :]
+        B, K = kmers.shape
+        if lengths is None:
+            lengths = np.full(B, K, dtype=np.int32)
+        lengths = np.asarray(lengths, dtype=np.int32)
+        exact = np.asarray(self.count_kmers(kmers, lengths), dtype=np.int64)
+        if max_mismatch == 0:
+            return exact
+        if max_mismatch != 1:
+            raise NotImplementedError("max_mismatch must be 0 or 1")
+        active = np.arange(K)[None, :] >= (K - lengths[:, None])   # [B, K]
+        cand = np.arange(1, VC_LEN, dtype=np.uint8)[None, None, :]
+        ok = active[:, :, None] & (cand != kmers[:, :, None])      # [B, K, 5]
+        b_idx, p_idx, c_idx = np.nonzero(ok)
+        if b_idx.size == 0:
+            return exact
+        variants = kmers[b_idx].copy()
+        variants[np.arange(b_idx.size), p_idx] = (c_idx + 1).astype(np.uint8)
+        vcounts = np.asarray(self.count_kmers(variants, lengths[b_idx]), dtype=np.int64)
+        out = exact.copy()
+        np.add.at(out, b_idx, vcounts)
+        return out
 
     def count_kmers(self, kmers, lengths=None) -> np.ndarray:
         """Batched ``count_kmer``: ``[B, K]`` right-aligned int k-mers -> ``[B]``.

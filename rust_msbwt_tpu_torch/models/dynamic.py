@@ -15,16 +15,19 @@ rebuild it). Loading decodes the RLE bytes on the device.
 from __future__ import annotations
 
 import logging
+import os
 from typing import Iterator
 
 import numpy as np
 import torch
 
 from rust_msbwt_tpu_torch.models.core import BWTBase, BWTRange, HostRank
+from rust_msbwt_tpu_torch.models.rle_bwt import RleBWT
 from rust_msbwt_tpu_torch.ops import bcr
 from rust_msbwt_tpu_torch.ops import rank as rank_ops
 from rust_msbwt_tpu_torch.ops.alphabet import convert_stoi
 from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
+from rust_msbwt_tpu_torch.ops.pair_rank import build_pair_index, count_kmers_pair
 from rust_msbwt_tpu_torch.ops.rle import decode_symbols_device, runs_from_symbols
 from rust_msbwt_tpu_torch.utils.npy import load_bwt_bytes
 
@@ -87,8 +90,9 @@ class DynamicBWT(BWTBase):
         self._base = base
         self._index: rank_ops.OccIndex | None = index
         self._packed = packed
+        self._pair = None
         self._host_rank: HostRank | None = None
-        self._kmer_cache = None
+        self._kmer_cache = None  # _cache_k stays: rebuilt at the next query
 
     # --- insertion (ref: src/dynamic_bwt.rs:305-381) ---
 
@@ -230,9 +234,9 @@ class DynamicBWT(BWTBase):
         )
 
     def enable_kmer_cache(self, cache_k: int = 8) -> None:
-        """Precompute the ranges of all length-``cache_k`` strings
-        (``cache_k`` <= 8) so batched queries skip their first ``cache_k``
-        LF steps; rebuilt lazily after inserts."""
+        """Precompute the ranges of all length-``cache_k`` strings so batched
+        queries skip their first ``cache_k`` LF steps; rebuilt lazily after
+        inserts and loads."""
         self._cache_k = cache_k
         self._kmer_cache = None
         self._ensure_kmer_cache()
@@ -246,12 +250,20 @@ class DynamicBWT(BWTBase):
         return self._kmer_cache
 
     def count_kmers(self, kmers, lengths=None) -> np.ndarray:
-        """Batched counts of right-aligned k-mers on the device.
-
-        Uses the packed tier at every size: the JAX package's pair tier
-        (taken at 32M symbols and more) is not ported yet, and the packed
-        tier gives identical counts at every size."""
+        """Batched counts of right-aligned k-mers on the device. From
+        ``RleBWT.PAIR_AUTO_MIN_SYMBOLS`` on, the pair index and a
+        6^``CACHE_AUTO_K`` prefix cache answer (``MSBWT_TPU_NO_PAIR`` /
+        ``MSBWT_TPU_NO_CACHE`` opt out), both rebuilt lazily after inserts
+        and loads; below it, the packed tier. Equal counts on both."""
+        big = self.get_total_size() >= RleBWT.PAIR_AUTO_MIN_SYMBOLS
+        if not self._cache_k and big and not os.environ.get("MSBWT_TPU_NO_CACHE"):
+            self._cache_k = RleBWT.CACHE_AUTO_K
         cache = self._ensure_kmer_cache()
+        if big and not os.environ.get("MSBWT_TPU_NO_PAIR"):
+            if self._pair is None:
+                self._pair = build_pair_index(self.device_index)
+            return count_kmers_pair(self._pair, kmers, lengths, cache=cache,
+                                    cache_k=self._cache_k)
         return count_kmers_packed(
             self.packed_index, kmers, lengths, cache=cache, cache_k=self._cache_k,
         )

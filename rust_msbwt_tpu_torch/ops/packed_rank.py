@@ -17,10 +17,9 @@ This is also the exact layout the merge-insert kernel writes for the build
 buffer (``ops.merge_insert``), so the build's per-stage rank is
 ``rank_packed`` on the kernel's table.
 
-Query tiers: the JAX package switches ``count_kmers`` to the pair index at
-32M symbols and more. The pair index is not ported yet; the port uses this
-packed tier at every size (the JAX package's ``MSBWT_TPU_NO_PAIR=1``
-configuration), and the counts are identical.
+Query tiers: ``RleBWT.count_kmers`` answers through this tier below 32M
+symbols and through the pair index (``ops.pair_rank``) above, as the JAX
+package does; the counts are identical.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ import numpy as np
 import torch
 
 from rust_msbwt_tpu_torch.ops.alphabet import VC_LEN
-from rust_msbwt_tpu_torch.ops.rank import BIN, KmerCache, OccIndex, _cache_seed, fetch_counts
+from rust_msbwt_tpu_torch.ops.rank import BIN, KmerCache, OccIndex, _cache_seed, count_batch
 
 ROW = 32  # int32 lanes per packed bin row
 _I32 = torch.int32
@@ -151,33 +150,8 @@ def count_kmers_packed(index: PackedOccIndex, kmers, lengths=None, cache=None,
     uint8 k-mers (numpy) -> int64 counts (ref semantics:
     src/msbwt_core.rs:124-161). With a ``KmerCache`` of depth ``cache_k``,
     queries of length >= cache_k skip their first cache_k LF steps."""
-    from rust_msbwt_tpu_torch.utils.checks import validate_kmers
+    def impl(km, ln, c, ck):
+        return _count_kmers_packed_impl(index.table, index.starts, index.n, km, ln,
+                                        cache=c, cache_k=ck)
 
-    kmers = np.asarray(kmers, dtype=np.uint8)
-    if kmers.ndim == 1:
-        kmers = kmers[None, :]
-    if not np.all(kmers < VC_LEN):
-        raise ValueError("k-mer symbols must be < 6")
-    B, K = kmers.shape
-    if lengths is None:
-        lengths = np.full(B, K, dtype=np.int32)
-    lengths = np.asarray(lengths, dtype=np.int32)
-    validate_kmers(kmers, lengths)
-    if cache is not None and cache_k > 0 and K >= cache_k:
-        short = lengths < cache_k
-        if short.any():  # rare path: too short for the cache seed
-            out = np.empty(B, dtype=np.int64)
-            out[short] = count_kmers_packed(index, kmers[short], lengths[short])
-            out[~short] = count_kmers_packed(
-                index, kmers[~short], lengths[~short], cache=cache, cache_k=cache_k
-            )
-            return out
-    else:
-        cache, cache_k = None, 0
-    dev = index.table.device
-    out = _count_kmers_packed_impl(
-        index.table, index.starts, index.n,
-        torch.from_numpy(kmers).to(dev), torch.from_numpy(lengths).to(dev),
-        cache=cache, cache_k=cache_k,
-    )
-    return fetch_counts(out)
+    return count_batch(impl, index.table.device, kmers, lengths, cache, cache_k)

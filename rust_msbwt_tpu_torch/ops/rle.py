@@ -43,6 +43,67 @@ def runs_from_bytes(rle: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return syms[starts], counts.astype(np.uint64)
 
 
+def runs_from_bytes_with_offsets(
+    rle: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``runs_from_bytes`` plus each run's byte offset (int64), for the
+    run-boundary-sampled parity FM tables (ref: src/rle_bwt.rs:421-444).
+
+    >>> s, c, off = runs_from_bytes_with_offsets(np.array([13, 9, 25, 10], np.uint8))
+    >>> s.tolist(), c.tolist(), off.tolist()
+    ([5, 1, 2], [1, 97, 1], [0, 1, 3])
+    """
+    rle = np.asarray(rle, dtype=np.uint8)
+    if rle.size == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return np.zeros(0, dtype=np.uint8), np.zeros(0, dtype=np.uint64), z
+    syms = rle & MASK
+    is_start = np.empty(rle.size, dtype=bool)
+    is_start[0] = True
+    np.not_equal(syms[1:], syms[:-1], out=is_start[1:])
+    run_syms, run_counts = runs_from_bytes(rle)
+    return run_syms, run_counts, np.flatnonzero(is_start).astype(np.int64)
+
+
+def symbol_counts_from_bytes(rle: np.ndarray) -> np.ndarray:
+    """Total occurrences of each symbol, from the compressed form (the
+    equivalent of ``calculate_totals``, ref: src/rle_bwt.rs:352-384).
+
+    >>> symbol_counts_from_bytes(np.array([13, 9, 10, 8], np.uint8)).tolist()
+    [1, 1, 1, 0, 0, 1]
+    """
+    syms, counts = runs_from_bytes(rle)
+    totals = np.zeros(VC_LEN, dtype=np.uint64)
+    np.add.at(totals, syms, counts)
+    return totals
+
+
+def convert_to_vec(stream) -> np.ndarray:
+    """``$ACGNT`` character stream -> compressed RLE byte vector (ref:
+    src/bwt_converter.rs:26-80). Takes ``bytes``, ``str`` or a uint8
+    array; newline bytes are dropped, also inside a run (ref test
+    src/bwt_converter.rs:209-217); any other byte raises ``ValueError``.
+
+    >>> convert_to_vec("TAC$\\nGATCG$").tolist() == [13, 9, 10, 8, 11, 9, 13, 10, 11, 8]
+    True
+    """
+    if isinstance(stream, str):
+        stream = stream.encode("latin-1")
+    if isinstance(stream, np.ndarray):
+        raw = np.asarray(stream, dtype=np.uint8)
+    else:
+        raw = np.frombuffer(bytes(stream), dtype=np.uint8)
+    raw = raw[raw != 0x0A]
+    translate = np.full(256, 255, dtype=np.uint8)
+    for i, ch in enumerate(b"$ACGNT"):
+        translate[ch] = i
+    translated = translate[raw]
+    if np.any(translated == 255):
+        bad = raw[translated == 255][0]
+        raise ValueError(f'Unexpected symbol in input: char "{chr(bad)}"')
+    return bytes_from_runs(*runs_from_symbols(translated))
+
+
 def bytes_from_runs(syms: np.ndarray, counts: np.ndarray) -> np.ndarray:
     """Encode maximal runs into RLE bytes (ref: src/bwt_converter.rs:161-169).
 

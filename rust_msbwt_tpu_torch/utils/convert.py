@@ -2,7 +2,8 @@
 
 The parity tests run the JAX package and the port on the same input and
 compare what each computes; these converters put both on the port's
-logical layout (``uint8`` buffer, ``PackedOccIndex`` table). They read
+logical layout (``uint8`` buffer, ``PackedOccIndex`` table) or carry a
+JAX ``PairIndex``, ``RunOccIndex`` or ``KmerCache`` across. They read
 numpy arrays (and plain attributes) only, so this module imports no jax.
 """
 
@@ -30,6 +31,31 @@ def packed_index_from_numpy(table, starts, n: int, device) -> PackedOccIndex:
     """A ``PackedOccIndex`` from its numpy parts (``table`` i32 [nb+1, 32])."""
     return PackedOccIndex(table=_t(table, np.int32, device),
                           starts=_t(starts, np.int32, device), n=int(n))
+
+
+def pair_index_from_numpy(table2, starts, dmat, n: int, device):
+    """A ``PairIndex`` from its numpy parts (``table2`` i32 [nb, 60],
+    ``starts`` i32 [7], ``dmat`` i32 [36])."""
+    from rust_msbwt_tpu_torch.ops.pair_rank import PairIndex
+
+    return PairIndex(table2=_t(table2, np.int32, device), starts=_t(starts, np.int32, device),
+                     dmat=_t(dmat, np.int32, device), n=int(n))
+
+
+def run_index_from_numpy(table, seek, starts, n: int, device):
+    """A ``RunOccIndex`` from its numpy parts (``table`` i32 [NR+2, 40],
+    ``seek`` i32 [n // 64 + 1], ``starts`` i32 [7])."""
+    from rust_msbwt_tpu_torch.ops.run_rank import RunOccIndex
+
+    return RunOccIndex(table=_t(table, np.int32, device), seek=_t(seek, np.int32, device),
+                       starts=_t(starts, np.int32, device), n=int(n))
+
+
+def kmer_cache_from_numpy(lo, hi, device):
+    """A ``KmerCache`` from its two flat i32 [6^k] arrays."""
+    from rust_msbwt_tpu_torch.ops.rank import KmerCache
+
+    return KmerCache(lo=_t(lo, np.int32, device), hi=_t(hi, np.int32, device))
 
 
 def state_from_jax_phys(phys, table_phys, counts, n_cap: int, *, cs: int = 128,

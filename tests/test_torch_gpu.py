@@ -1,7 +1,9 @@
-"""Card tests of the port's merge-insert kernel: the CUDA kernel against its
-plain PyTorch twin on the same CUDA tensors, bit-exact (tolerance 0: every
-output is an integer) — one pass, a build, an extend build onto a non-empty
-base, and a streamed build.
+"""Card tests of the port: the merge-insert CUDA kernel against its plain
+PyTorch twin on the same CUDA tensors — one pass, a build, an extend build
+onto a non-empty base, and a streamed build — and the query tiers (pair
+index, run tier, a chunked deep prefix cache, ``RleBWT``'s policy) on the
+card against the same functions on the CPU. Bit-exact throughout
+(tolerance 0: every output is an integer).
 
 Marked ``gpu``; without a card every test skips (the decision is made in a
 fixture, never at import time). This file imports no jax, so it runs on a
@@ -14,11 +16,25 @@ import numpy as np
 import pytest
 import torch
 
-from rust_msbwt_tpu_torch.ops.bcr import build_msbwt_with_index, encode_reads
+from rust_msbwt_tpu_torch.models.rle_bwt import RleBWT
+from rust_msbwt_tpu_torch.ops import rank
+from rust_msbwt_tpu_torch.ops.bcr import (
+    build_msbwt,
+    build_msbwt_with_index,
+    encode_reads,
+    index_from_symbols,
+)
 from rust_msbwt_tpu_torch.ops.merge_insert import (
     insert_maps,
     merge_insert,
     merge_insert_plain,
+)
+from rust_msbwt_tpu_torch.ops.pair_rank import build_pair_index, count_kmers_pair
+from rust_msbwt_tpu_torch.ops.rle import encode_symbols, runs_from_symbols
+from rust_msbwt_tpu_torch.ops.run_rank import (
+    build_kmer_cache_runs,
+    build_run_index,
+    count_kmers_runs,
 )
 from rust_msbwt_tpu_torch.utils.streaming import StreamingBuilder
 
@@ -137,3 +153,79 @@ def test_streamed_build_kernel_matches_plain(cuda):
     idx_p, _ = build_msbwt_with_index(reads, lengths, device=cuda,
                                       merge=merge_insert_plain)
     assert torch.equal(b.finish(device_out=True), idx_p.bwt[: idx_p.n])
+
+
+def _query_case(n_reads, read_len, seed):
+    """A BWT of reads from a random genome (built on the CPU) and 21-mers
+    of ragged lengths drawn from the reads, plus random ones."""
+    r = np.random.default_rng(seed)
+    genome = r.integers(1, 6, 2000).astype(np.uint8)
+    st = r.integers(0, genome.size - read_len + 1, n_reads)
+    reads = genome[st[:, None] + np.arange(read_len)[None, :]]
+    dec = build_msbwt(reads, np.full(n_reads, read_len, np.int32), device="cpu")
+    rows, offs = r.integers(0, n_reads, 3000), r.integers(0, read_len - 20, 3000)
+    kmers = reads[rows[:, None], offs[:, None] + np.arange(21)[None, :]]
+    kmers[-300:] = r.integers(0, 6, (300, 21))
+    lengths = r.integers(1, 22, 3000).astype(np.int32)
+    kmers[np.arange(21)[None, :] < (21 - lengths)[:, None]] = 0
+    return dec, kmers, lengths
+
+
+# 255 x 100 bp -> n = 25,755; 256 x 99 bp -> n = 25,600 = 200 x 128
+@pytest.mark.parametrize("n_reads,read_len", [(255, 100), (256, 99)])
+@pytest.mark.parametrize("cache_k", [0, 3])
+def test_pair_tier_matches_cpu(cuda, n_reads, read_len, cache_k):
+    dec, kmers, lengths = _query_case(n_reads, read_len, n_reads)
+    out = {}
+    for dev in ("cpu", cuda):
+        idx, packed = index_from_symbols(torch.from_numpy(dec).to(dev))
+        pair = build_pair_index(idx)
+        cache = (rank.build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, cache_k)
+                 if cache_k else None)
+        out[str(dev)] = (pair.table2.cpu(), pair.dmat.cpu(),
+                         count_kmers_pair(pair, kmers, lengths, cache=cache, cache_k=cache_k))
+    (t_c, d_c, n_c), (t_g, d_g, n_g) = out["cpu"], out[str(cuda)]
+    assert torch.equal(t_c, t_g) and torch.equal(d_c, d_g)
+    assert np.array_equal(n_c, n_g)
+
+
+@pytest.mark.parametrize("cache_k", [0, 3])
+def test_run_tier_matches_cpu(cuda, cache_k):
+    dec, kmers, lengths = _query_case(300, 60, 5)
+    syms, lens = runs_from_symbols(dec)
+    out = {}
+    for dev in ("cpu", cuda):
+        ridx = build_run_index(syms, lens, device=dev)
+        cache = build_kmer_cache_runs(ridx, cache_k) if cache_k else None
+        out[str(dev)] = (ridx.table.cpu(),
+                         count_kmers_runs(ridx, kmers, lengths, cache=cache, cache_k=cache_k),
+                         None if cache is None else torch.stack([cache.lo, cache.hi]).cpu())
+    (t_c, n_c, c_c), (t_g, n_g, c_g) = out["cpu"], out[str(cuda)]
+    assert torch.equal(t_c, t_g) and np.array_equal(n_c, n_g)
+    assert cache_k == 0 or torch.equal(c_c, c_g)
+
+
+def test_deep_cache_chunked_matches_cpu(cuda, monkeypatch):
+    dec, *_ = _query_case(100, 50, 9)
+    monkeypatch.setattr(rank, "_CACHE_LEVEL_CHUNK", 6**4 + 3)
+    caches = []
+    for dev in ("cpu", cuda):
+        idx = rank.build_occ_index(torch.from_numpy(dec).to(dev))
+        caches.append(rank.build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 7))
+    assert torch.equal(caches[0].lo, caches[1].lo.cpu())
+    assert torch.equal(caches[0].hi, caches[1].hi.cpu())
+
+
+def test_rle_bwt_policy_on_card(cuda, monkeypatch):
+    """Pair + a 6^3 cache picked by the policy (threshold patched) on the
+    card; the counts equal the CPU engine's."""
+    dec, kmers, lengths = _query_case(200, 80, 11)
+    monkeypatch.setattr(RleBWT, "PAIR_AUTO_MIN_SYMBOLS", 1)
+    monkeypatch.setattr(RleBWT, "CACHE_AUTO_K", 3)
+    counts = []
+    for dev in ("cpu", cuda):
+        bwt = RleBWT(device=dev)
+        bwt.load_vector(encode_symbols(dec))
+        counts.append(bwt.count_kmers(kmers, lengths))
+        assert bwt._pair_index is not None and bwt._cache_k == 3
+    assert np.array_equal(counts[0], counts[1])

@@ -165,7 +165,8 @@ def test_native_library_builds_in_port_dir():
 _DOCTEST_MODULES = [
     "ops.rle", "ops.rank", "ops.packed_rank", "ops.bcr", "models.core",
     "models.dynamic", "models.rle_bwt", "utils.npy", "utils.fastx", "utils.checks",
-    "ops.extract", "utils.streaming",
+    "ops.extract", "utils.streaming", "ops.pair_rank", "ops.run_rank",
+    "utils.checkpoint", "apps.correct",
 ]
 
 

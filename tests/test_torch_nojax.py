@@ -20,7 +20,9 @@ for name in names:
     importlib.import_module(name)
 assert not any(m == "jax" or m.startswith(("jax.", "rust_msbwt_tpu."))
                for m in sys.modules if sys.modules[m] is not None), "jax leaked"
-for name in ("ops.extract", "utils.streaming", "cli.extract"):
+for name in ("ops.extract", "utils.streaming", "cli.extract", "ops.pair_rank",
+             "ops.run_rank", "utils.checkpoint", "apps.correct", "cli.correct",
+             "cli.convert"):
     assert pkg.__name__ + "." + name in names, name
 
 from rust_msbwt_tpu_torch.cli.build import main
@@ -39,4 +41,4 @@ def test_port_imports_no_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("OK")
-    assert int(res.stdout.split()[1]) >= 22  # every module was walked
+    assert int(res.stdout.split()[1]) >= 29  # every module was walked

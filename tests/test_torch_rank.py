@@ -114,9 +114,11 @@ def test_kmer_cache_matches_jax(cache_k):
 
 
 def test_kmer_cache_depth_limit():
+    """Caches of every depth >= 1 build (6^9 against the JAX package in
+    tests/test_torch_query_tiers.py); depth 0 is refused."""
     idx = rank.build_occ_index(_bwt(10, 1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        rank.build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 9)
+    with pytest.raises(ValueError):
+        rank.build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 0)
 
 
 @pytest.mark.parametrize("n,cache_k", [(128, 0), (1000, 0), (1000, 3), (4096, 4), (4096, 0)])
