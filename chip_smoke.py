@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from ``rust_msbwt_tpu_torch/csrc`` and drives
 its paths at the repo's flagship size (5M x 100 bp reads from a 4.6 Mbase
 random genome, 505M BWT symbols, 1M 21-mer queries): the one-shot build
-with index and k-mer counting, the streamed build, load-and-extend, and
-read recovery. It never falls back to the CPU and catches no failure: any
-phase that fails ends the run with a traceback and a non-zero exit code,
-and no result line.
+with index and k-mer counting, the streamed build, load-and-extend, read
+recovery and the query side. It never falls back to the CPU and catches no
+failure: any phase that fails ends the run with a traceback and a non-zero
+exit code, and no result line.
 
 Phases:
   1. card check (``nvidia-smi`` name and power limit; no CUDA -> exit 2)
   2. kernel build (time + ``-Xptxas -v``)
-  3. merge-insert kernel against its plain PyTorch twin on the card, exact,
-     at small shapes and at one 505M-symbol pass with 5M inserts; times both
+  3. merge-insert kernel against its plain PyTorch version on the card,
+     exact, at small shapes, at the tile edge shapes of
+     ``tests/test_torch_gpu.py`` and at one 505M-symbol pass with 5M
+     inserts; times both (the kernel's prep included) against the pass's
+     byte bound; with ``--parent DIR`` (a ``git archive`` of the parent
+     commit) also the parent's Form 1 prep + kernel, in turns
   4. golden bytes: ``test_data/two_string.fa`` through the port's build CLI
      on ``cuda`` must give ``test_data/two_string.npy``
   5. 10k x 100 bp build on ``cuda``, byte-identical to the native reference
@@ -139,57 +143,132 @@ def merge_case(n_old, n_ins, seed, frac_active=1.0, clustered=False, extra=0):
     old = np.full(n_cap, 7, np.uint8)
     old[:n_old] = rng.integers(0, 6, n_old)
     v = rng.integers(0, 6, n_ins).astype(np.uint8)
-    return old, q.astype(np.int32), v, active
+    perm = rng.permutation(n_ins)  # a stage's slots come in read order, not sorted
+    return old, q[perm].astype(np.int32), v[perm], active[perm]
 
 
-def phase_kernel(torch, dev):
-    """Phase 3: kernel == plain on the card; times at the 505M stage shape."""
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
+
+
+def load_parent_kernels(parent):
+    """The parent commit's kernel library (the Form 1 pass: ``old, ins,
+    tmap -> out, table``), built from ``parent``'s own sources into its own
+    ``_build``; None when no parent checkout is given."""
+    import importlib.util
+
+    if not parent:
+        return None
+    path = os.path.join(parent, "rust_msbwt_tpu_torch", "_kernels.py")
+    spec = importlib.util.spec_from_file_location("parent_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build()
+    return mod.load()
+
+
+def phase_kernel(torch, dev, parent=None):
+    """Phase 3: kernel == plain on the card, exact, at PR 1's shapes, the
+    tile edge shapes and one 505M pass; times at the 505M stage shape, prep
+    included (the inputs are on the card before the timed region). With a
+    parent checkout, its Form 1 prep + kernel is timed in the same call, in
+    turns (parent, new, new, parent)."""
+    from rust_msbwt_tpu_torch import _kernels
     from rust_msbwt_tpu_torch.ops.merge_insert import (
         insert_maps,
         merge_insert,
-        merge_insert_plain,
+        merge_insert_slots,
     )
 
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_gpu import EDGE_KINDS, _edge_case
+
+    tile = _kernels.load().msbwt_merge_tile()
     shapes = [
-        ("sparse", dict(n_old=1_000_000, n_ins=10_000, seed=1, extra=37)),
-        ("masked", dict(n_old=1_000_000, n_ins=20_000, seed=2, frac_active=0.5)),
-        ("clustered", dict(n_old=300_000, n_ins=40_000, seed=3, clustered=True)),
-        ("tiny", dict(n_old=50, n_ins=7, seed=4)),
-        ("505M", dict(n_old=N_READS * READ_LEN, n_ins=N_READS, seed=5)),
+        ("sparse", lambda: merge_case(n_old=1_000_000, n_ins=10_000, seed=1, extra=37)),
+        ("masked", lambda: merge_case(n_old=1_000_000, n_ins=20_000, seed=2, frac_active=0.5)),
+        ("clustered", lambda: merge_case(n_old=300_000, n_ins=40_000, seed=3, clustered=True)),
+        ("tiny", lambda: merge_case(n_old=50, n_ins=7, seed=4)),
+        *[(f"edge {k}", lambda k=k: _edge_case(k, len(k), tile)) for k in EDGE_KINDS],
+        ("505M", lambda: merge_case(n_old=N_READS * READ_LEN, n_ins=N_READS, seed=5)),
     ]
+    parent_lib = load_parent_kernels(parent)
     max_err = 0
     times = {}
-    for name, kw in shapes:
-        old, q, v, active = merge_case(**kw)
-        n = old.size
+    for name, make in shapes:
+        old, q, v, active = make()
+        n, N = old.size, q.size
         t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        old_t = t(old)
-        ins, tmap, m = insert_maps(n, t(q), t(v), t(active))
-        ins = ins[:n]
-        new_k, tab_k = merge_insert(old_t, ins, tmap)
-        new_p, tab_p = merge_insert_plain(old_t, ins, tmap)
+        args = (t(old), t(q), t(v), t(active))
+        del old
+        new_k, tab_k, m_k = merge_insert(*args)
+        new_p, tab_p, m_p = merge_insert_slots(*args)
         torch.cuda.synchronize()
-        err = max(int((new_k.int() - new_p.int()).abs().max()),
+        err = max(int((new_k.int() - new_p.int()).abs().max()) if n else 0,
                   int((tab_k.long() - tab_p.long()).abs().max()))
         max_err = max(max_err, err)
-        log(f"[kernel] {name}: n={n} (n % 128 = {n % 128}) inserts="
-            f"{int(m)} max_abs_err={err}")
-        check(err == 0 and int(m) == int(active.sum()), f"kernel != plain ({name})")
+        log(f"[kernel] {name}: n={n} (n % 128 = {n % 128}, n % {tile} = {n % tile}) "
+            f"inserts={int(m_k)} of {N} max_abs_err={err}")
+        check(err == 0 and int(m_k) == int(m_p) == int(active.sum()),
+              f"kernel != plain ({name})")
         if name == "505M":
-            out, tab = torch.empty_like(new_k), torch.empty_like(tab_k)
-            del new_k, new_p, tab_k, tab_p
-            times["ms"] = cuda_ms(lambda: merge_insert(old_t, ins, tmap, out=out,
-                                                       table=tab), 20)
-            times["plain_ms"] = cuda_ms(lambda: merge_insert_plain(
-                old_t, ins, tmap, out=out, table=tab), 3)
-            times["prep_ms"] = cuda_ms(lambda: insert_maps(n, t(q), t(v), t(active)), 3)
-            gbs = 8 * n / (times["ms"] * 1e-3) / 1e9
-            log(f"[kernel] 505M pass: kernel {times['ms']:.4f} ms "
-                f"(~8 B/position -> {gbs:.1f} GB/s), plain {times['plain_ms']:.4f} ms, "
-                f"prep (insert maps, torch ops, incl. upload) {times['prep_ms']:.4f} ms")
-        del old_t, ins, tmap
+            del new_p, tab_p
+            times.update(time_505m(torch, args, new_k, tab_k, parent_lib, insert_maps,
+                                   merge_insert, merge_insert_slots))
+        del args, new_k, tab_k
     torch.cuda.empty_cache()
     return max_err, times
+
+
+def time_505m(torch, args, new_k, tab_k, parent_lib, insert_maps, merge_insert,
+              merge_insert_slots):
+    """Times of the 505M pass: the kernel (prep included: it takes the slots),
+    the plain version, and the parent's Form 1 prep + kernel in turns."""
+    old_t, q_t, v_t, a_t = args
+    n, N = old_t.shape[0], q_t.shape[0]
+    out, tab = torch.empty_like(new_k), torch.empty_like(tab_k)
+    nb = tab.shape[0] - 1
+    bound_bytes = 2 * n + 6 * N + tab.numel() * 4  # old, q/v/active, new, table
+    times = {"bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3}
+    new_fn = lambda: merge_insert(*args, out=out, table=tab)  # noqa: E731
+    turns = [("new", new_fn), ("new", new_fn)]
+    if parent_lib is not None:
+        ins = torch.empty(n + 1, dtype=torch.int8, device=old_t.device)
+        tmap = torch.empty(n, dtype=torch.int32, device=old_t.device)
+        scratch = torch.empty(parent_lib.msbwt_merge_insert_scratch_len(n),
+                              dtype=torch.int32, device=old_t.device)
+        stream = torch.cuda.current_stream(old_t.device).cuda_stream
+
+        def parent_fn():  # PR 3's _build_device pass: insert_maps + Form 1 kernel
+            insert_maps(n, q_t, v_t, a_t, ins=ins, tmap=tmap)
+            err = parent_lib.msbwt_merge_insert(
+                old_t.data_ptr(), ins.data_ptr(), tmap.data_ptr(), out.data_ptr(),
+                tab.data_ptr(), scratch.data_ptr(), n, stream)
+            check(err == 0, f"parent kernel launch: CUDA error {err}")
+
+        parent_fn()
+        torch.cuda.synchronize()
+        check(torch.equal(out, new_k) and torch.equal(tab, tab_k),
+              "parent Form 1 pass != the new pass")
+        turns = [("parent", parent_fn), *turns, ("parent", parent_fn)]
+    got = {"new": [], "parent": []}
+    for who, fn in turns:
+        got[who].append(cuda_ms(fn, 20))
+    times["ms"] = sum(got["new"]) / len(got["new"])
+    times["parent_ms"] = sum(got["parent"]) / 2 if got["parent"] else None
+    times["plain_ms"] = cuda_ms(lambda: merge_insert_slots(*args, out=out, table=tab), 3)
+    gbs = bound_bytes / (times["ms"] * 1e-3) / 1e9
+    log(f"[kernel] 505M pass ({n} positions, {N} inserts, {nb} bins), prep included, "
+        "inputs on the card: kernel " + " / ".join(f"{x:.4f}" for x in got["new"])
+        + f" ms (mean {times['ms']:.4f}; bound {times['bound_ms']:.4f} ms for "
+        f"{bound_bytes} B at 3.35 TB/s -> {times['bound_ms'] / times['ms']:.1%} of it, "
+        f"{gbs:.1f} GB/s); plain {times['plain_ms']:.4f} ms")
+    if got["parent"]:
+        log("[kernel] parent Form 1 (insert_maps + kernel), turns parent/new/new/parent: "
+            + " / ".join(f"{x:.4f}" for x in got["parent"])
+            + f" ms (mean {times['parent_ms']:.4f}); new / parent = "
+            f"{times['ms'] / times['parent_ms']:.3f}")
+        check(times["ms"] < times["parent_ms"], "the new pass is not faster than Form 1")
+    return times
 
 
 def phase_golden(dev_name):
@@ -226,12 +305,12 @@ def phase_extend_10k(torch, np, dev):
     """Phase 5b: 10k reads extended by another 10k (one 20k draw split in
     two, so the halves share a genome), kernel == plain == native."""
     from rust_msbwt_tpu_torch.ops.bcr import build_msbwt_with_index
-    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert, merge_insert_plain
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert, merge_insert_slots
     from rust_msbwt_tpu_torch.utils.native import baseline_build_native
 
     reads, lengths = make_reads(20_000, 100, 0xE17E)
     out = {}
-    for name, merge in (("kernel", merge_insert), ("plain", merge_insert_plain)):
+    for name, merge in (("kernel", merge_insert), ("plain", merge_insert_slots)):
         before = merge_insert.launches
         base, _ = build_msbwt_with_index(reads[:10_000], lengths[:10_000],
                                          device=dev, merge=merge)
@@ -271,7 +350,7 @@ def median_s(torch, fn, reps=3):
 def phase_main(torch, np, dev, reads, lengths, kmers):
     """Phase 6: the 505M main path through the kernel, then checks."""
     from rust_msbwt_tpu_torch.ops.bcr import build_msbwt_with_index
-    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert, merge_insert_plain
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert, merge_insert_slots
     from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
     from rust_msbwt_tpu_torch.ops.rank import build_kmer_cache
     from rust_msbwt_tpu_torch.utils.native import (
@@ -312,7 +391,7 @@ def phase_main(torch, np, dev, reads, lengths, kmers):
 
     t0 = time.perf_counter()
     idx_p, packed_p = build_msbwt_with_index(reads, lengths, device=dev,
-                                             merge=merge_insert_plain)
+                                             merge=merge_insert_slots)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     check(torch.equal(idx.bwt, idx_p.bwt) and torch.equal(packed.table, packed_p.table),
@@ -594,8 +673,16 @@ def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8,
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit (git archive): phase 3 "
+                         "also times its Form 1 merge pass, in turns with this one")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -621,7 +708,7 @@ def main() -> int:
     log(f"[build] kernels built in {time.perf_counter() - t0:.2f} s")
     log(ptxas.strip() or "(library up to date: not rebuilt)")
 
-    max_err, times = phase_kernel(torch, dev)
+    max_err, times = phase_kernel(torch, dev, args.parent)
     phase_golden("cuda")
     phase_10k(np, dev)
     phase_extend_10k(torch, np, dev)
@@ -650,6 +737,11 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],
+        "bound_ms": times["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "prep_included": True,
+        "parent_ms": times["parent_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

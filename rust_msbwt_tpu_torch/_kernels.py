@@ -79,9 +79,11 @@ def load():
             build()
             lib = ctypes.CDLL(LIB_PATH)
             vp, i64 = ctypes.c_void_p, ctypes.c_int64
+            lib.msbwt_merge_tile.restype = ctypes.c_int
+            lib.msbwt_merge_tile.argtypes = []
             lib.msbwt_merge_insert_scratch_len.restype = i64
-            lib.msbwt_merge_insert_scratch_len.argtypes = [i64]
+            lib.msbwt_merge_insert_scratch_len.argtypes = [i64, i64]
             lib.msbwt_merge_insert.restype = ctypes.c_int
-            lib.msbwt_merge_insert.argtypes = [vp, vp, vp, vp, vp, vp, i64, vp]
+            lib.msbwt_merge_insert.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i64, vp]
             _lib = lib
         return _lib

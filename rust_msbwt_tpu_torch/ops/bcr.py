@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from rust_msbwt_tpu_torch.ops.alphabet import VC_LEN
-from rust_msbwt_tpu_torch.ops.merge_insert import ROW, merge_insert, merge_insert_slots
+from rust_msbwt_tpu_torch.ops.merge_insert import ROW, merge_insert
 from rust_msbwt_tpu_torch.ops.packed_rank import PackedOccIndex, lf_step
 from rust_msbwt_tpu_torch.ops.rank import (
     BIN,
@@ -363,7 +363,7 @@ def index_from_symbols(sym: torch.Tensor, *, merge=merge_insert
     old = torch.full((max(1, -(-n // BIN)) * BIN,), PAD, dtype=torch.uint8, device=dev)
     old[:n] = sym
     none = torch.zeros(0, dtype=_I32, device=dev)
-    bwt, table, _ = merge_insert_slots(old, none, none, none.bool(), merge=merge)
+    bwt, table, _ = merge(old, none, none.to(torch.uint8), none.bool())
     starts = starts_from_counts(table[-1, :VC_LEN])
     return (OccIndex(bwt=bwt, occ=table[:, :VC_LEN].contiguous(), starts=starts, n=n),
             PackedOccIndex(table=table, starts=starts, n=n))
@@ -416,8 +416,6 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
     bufs = [torch.full((full_cap,), PAD, dtype=torch.uint8, device=device)
             for _ in range(2)]
     table = torch.empty((full_cap // BIN + 1, ROW), dtype=_I32, device=device)
-    ins = torch.empty(full_cap + 1, dtype=torch.int8, device=device)
-    tmap = torch.empty(full_cap, dtype=_I32, device=device)
     counts = torch.zeros(VC_LEN, dtype=_I32, device=device)
     if n0:
         bufs[0][:n0] = base
@@ -426,10 +424,8 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
 
     def run_pass(src, cap, q, v, active):
         dst = 1 - src
-        _, _, m = merge_insert_slots(
-            bufs[src][:cap], q, v, active, merge=merge, ins=ins, tmap=tmap,
-            out=bufs[dst][:cap], table=table[: cap // BIN + 1],
-        )
+        _, _, m = merge(bufs[src][:cap], q, v, active, out=bufs[dst][:cap],
+                        table=table[: cap // BIN + 1])
         return dst, m
 
     # stage 1: every read's last symbol at its terminator slot
@@ -475,8 +471,8 @@ def build_msbwt_with_index(reads: np.ndarray, lengths: np.ndarray,
     the result IS the one the last merge pass wrote, so deriving both
     indexes is slicing: ``OccIndex.occ`` is the table's lanes 0..5 and
     ``OccIndex.bwt`` the final buffer. ``merge`` is the pass function
-    (default: the kernel wrapper; ``ops.merge_insert.merge_insert_plain``
-    runs the plain twin on any device, for comparison).
+    (default: the kernel wrapper; ``ops.merge_insert.merge_insert_slots``
+    runs the plain version on any device, for comparison).
 
     >>> from rust_msbwt_tpu_torch.ops.alphabet import convert_stoi
     >>> reads, lens = encode_reads([convert_stoi("ACGT"), convert_stoi("TGCA")])

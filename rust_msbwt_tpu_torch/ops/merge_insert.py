@@ -14,15 +14,18 @@ kernel's physical layout (guard chunks, rows of 128 int32 lanes, the
 64-lane fused table, the shifted-view fast path) exists for Mosaic's
 limits and is not carried over.
 
-Two halves:
+* **The pass** — ``merge_insert(old, q, v, active)``: on a CUDA tensor it
+  launches the kernel in ``csrc/merge_insert.cu`` (or raises), which takes
+  the slots as they are and builds each tile's insert map and shift in
+  shared memory; on a CPU tensor it runs ``merge_insert_slots``.
+  ``merge_insert.launches`` counts kernel launches, one a pass.
+* **The plain version** — ``merge_insert_slots``, the same contract in two
+  torch steps: ``insert_maps`` (a masked scatter of ``v + 1`` into an int8
+  insert map, inactive inserts to a dump slot at index ``n`` since torch has
+  no ``mode="drop"``, then ``tmap = cumsum(ins > 0)`` in int32) and
+  ``merge_insert_plain`` (gather and ``where``, then the table).
 
-* **Prep (torch ops)** — ``insert_maps``: a masked scatter of ``v + 1`` into
-  an int8 insert map (inactive inserts go to a dump slot at index ``n``:
-  torch has no ``mode="drop"``), then ``tmap = cumsum(ins > 0)`` in int32.
-* **The pass** — ``merge_insert``: on a CUDA tensor it launches the kernel in
-  ``csrc/merge_insert.cu`` (or raises); on a CPU tensor it runs
-  ``merge_insert_plain``, the same function written with gather and
-  ``where``. ``merge_insert.launches`` counts kernel launches.
+The build functions' ``merge=`` argument takes either of the two.
 """
 
 from __future__ import annotations
@@ -67,10 +70,11 @@ def packed_table_plain(sym: torch.Tensor) -> torch.Tensor:
     padded[:n] = sym
     bins = padded.view(nb, BIN)
     table = torch.zeros((nb + 1, ROW), dtype=_I32, device=sym.device)
-    per_bin = torch.stack([(bins == s).sum(1, dtype=_I32) for s in range(6)], 1)
-    incl = torch.cumsum(per_bin, 0, dtype=_I32)
-    table[:nb, :6] = incl - per_bin
-    table[nb, :6] = incl[-1] if nb else 0
+    for s in range(6):  # one 1-D scan a symbol: a dim-0 scan of [nb, 6] is slow
+        per_bin = (bins == s).sum(1, dtype=_I32)
+        incl = torch.cumsum(per_bin, 0, dtype=_I32)
+        table[:nb, s] = incl - per_bin
+        table[nb, s] = incl[-1] if nb else 0
     w = padded.view(nb, 4, 32).long()
     k = torch.arange(32, device=sym.device)
     for p in range(3):
@@ -98,78 +102,81 @@ def merge_insert_plain(old: torch.Tensor, ins: torch.Tensor, tmap: torch.Tensor,
     return new, tab
 
 
-def _check(name, t, dtype, n):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+def merge_insert_slots(old: torch.Tensor, q: torch.Tensor, v: torch.Tensor,
+                       active: torch.Tensor, *, out: torch.Tensor | None = None,
+                       table: torch.Tensor | None = None):
+    """The plain PyTorch version of the pass, in the kernel's contract:
+    ``insert_maps`` + ``merge_insert_plain`` -> ``(new, table, m)``, the
+    contract of the JAX package's ``merge_insert_phys`` on the logical
+    layout. Runs on any device; ``out`` / ``table`` as in ``merge_insert``.
+    """
+    ins, tmap, m = insert_maps(old.shape[0], q, v, active)
+    new, table = merge_insert_plain(old, ins[: old.shape[0]], tmap, out=out, table=table)
+    return new, table, m
+
+
+def _check(name, t, dtype, shape, dev, aligned=False):
+    if t.device != dev:
+        raise ValueError(f"{name}: expected a tensor on {dev}, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() != 1 or t.shape[0] != n:
-        raise ValueError(f"{name}: expected shape [{n}], got {list(t.shape)}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected shape {list(shape)}, got {list(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name}: must start on a 16-byte boundary")
 
 
-def merge_insert(old: torch.Tensor, ins: torch.Tensor, tmap: torch.Tensor,
-                 *, out: torch.Tensor | None = None,
+def merge_insert(old: torch.Tensor, q: torch.Tensor, v: torch.Tensor,
+                 active: torch.Tensor, *, out: torch.Tensor | None = None,
                  table: torch.Tensor | None = None):
-    """One merge-insert pass: ``(new, table)``.
+    """One merge-insert pass: ``(new, table, m)``.
 
-    ``old`` uint8 [n] (PAD past the valid symbols), ``ins`` int8 [n] (v+1 at
-    insert slots), ``tmap`` int32 [n] (inclusive insert count). ``new`` is
-    uint8 [n]; ``table`` is int32 [ceil(n/128) + 1, 32] in the
-    ``PackedOccIndex`` layout. ``out``/``table`` may be given (same shapes).
+    ``old`` uint8 [n] (PAD past the valid symbols); ``q`` int32 [N] slots in
+    new coordinates, distinct and < n where ``active``; ``v`` uint8 [N]
+    symbols 0..5; ``active`` bool [N]. ``new`` is uint8 [n]: ``v[i]`` at
+    ``q[i]`` for every active i, old's symbols in order elsewhere; ``table``
+    is int32 [ceil(n/128) + 1, 32] in the ``PackedOccIndex`` layout; ``m``
+    the number of active inserts, a device scalar (no host sync).
+    ``out`` / ``table`` may be given (same shapes).
 
     On CUDA tensors this launches the Hopper kernel on the current stream
-    (and raises if it cannot); on CPU tensors it runs ``merge_insert_plain``.
+    (and raises if it cannot); its scratch is O(N + n / 16384) int32. On CPU
+    tensors it runs ``merge_insert_slots``, the plain version.
     """
     if old.device.type == "cpu":
-        return merge_insert_plain(old, ins, tmap, out=out, table=table)
-    n = old.shape[0]
+        return merge_insert_slots(old, q, v, active, out=out, table=table)
+    dev = old.device
+    if dev.type != "cuda":
+        raise ValueError(f"old: expected a CPU or CUDA tensor, got {dev}")
+    n, N = old.shape[0], q.shape[0]
     nb = -(-n // BIN)
-    _check("old", old, torch.uint8, n)
-    _check("ins", ins, torch.int8, n)
-    _check("tmap", tmap, _I32, n)
-    if ins.device != old.device or tmap.device != old.device:
-        raise ValueError("old, ins and tmap must be on one device")
     if n >= 2**31:
         raise ValueError("merge_insert: n must be < 2^31")
     if out is None:
-        out = torch.empty(n, dtype=torch.uint8, device=old.device)
+        out = torch.empty(n, dtype=torch.uint8, device=dev)
     if table is None:
-        table = torch.empty((nb + 1, ROW), dtype=_I32, device=old.device)
-    _check("out", out, torch.uint8, n)
-    if table.dtype != _I32 or tuple(table.shape) != (nb + 1, ROW) \
-            or not table.is_contiguous() or table.device != old.device:
-        raise ValueError(f"table: expected contiguous int32 [{nb + 1}, {ROW}] "
-                         f"on {old.device}")
+        table = torch.empty((nb + 1, ROW), dtype=_I32, device=dev)
+    _check("old", old, torch.uint8, (n,), dev, aligned=True)
+    _check("q", q, _I32, (N,), dev)
+    _check("v", v, torch.uint8, (N,), dev)
+    _check("active", active, torch.bool, (N,), dev)
+    _check("out", out, torch.uint8, (n,), dev, aligned=True)
+    _check("table", table, _I32, (nb + 1, ROW), dev, aligned=True)
     from rust_msbwt_tpu_torch import _kernels
 
     lib = _kernels.load()
-    scratch = torch.empty(lib.msbwt_merge_insert_scratch_len(n), dtype=_I32,
-                          device=old.device)
+    scratch = torch.empty(lib.msbwt_merge_insert_scratch_len(n, N), dtype=_I32, device=dev)
     err = lib.msbwt_merge_insert(
-        old.data_ptr(), ins.data_ptr(), tmap.data_ptr(), out.data_ptr(),
-        table.data_ptr(), scratch.data_ptr(), n,
-        torch.cuda.current_stream(old.device).cuda_stream,
+        old.data_ptr(), q.data_ptr(), v.data_ptr(), active.data_ptr(), out.data_ptr(),
+        table.data_ptr(), scratch.data_ptr(), n, N,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"merge_insert kernel launch failed: CUDA error {err}")
     merge_insert.launches += 1
-    return out, table
+    return out, table, scratch[0]
 
 
 merge_insert.launches = 0
-
-
-def merge_insert_slots(old: torch.Tensor, q: torch.Tensor, v: torch.Tensor,
-                       active: torch.Tensor, *, merge=merge_insert, ins=None,
-                       tmap=None, out=None, table=None):
-    """Prep + pass, the contract of the JAX package's ``merge_insert_phys``:
-    ``(old, q, v, active) -> (new, table, m)`` on the logical layout.
-    ``ins``, ``tmap``, ``out`` and ``table`` may be preallocated buffers;
-    ``merge`` is the pass (the kernel wrapper, or ``merge_insert_plain``).
-    """
-    n = old.shape[0]
-    ins, tmap, m = insert_maps(n, q, v, active, ins=ins, tmap=tmap)
-    new, table = merge(old, ins[:n], tmap, out=out, table=table)
-    return new, table, m

@@ -24,11 +24,8 @@ from rust_msbwt_tpu_torch.ops.bcr import (
     encode_reads,
     index_from_symbols,
 )
-from rust_msbwt_tpu_torch.ops.merge_insert import (
-    insert_maps,
-    merge_insert,
-    merge_insert_plain,
-)
+from rust_msbwt_tpu_torch.ops import merge_insert as merge_mod
+from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert, merge_insert_slots
 from rust_msbwt_tpu_torch.ops.pair_rank import build_pair_index, count_kmers_pair
 from rust_msbwt_tpu_torch.ops.rle import encode_symbols, runs_from_symbols
 from rust_msbwt_tpu_torch.ops.run_rank import (
@@ -79,29 +76,97 @@ def test_kernel_matches_plain(cuda, n_old, n_ins, n_cap, frac, clustered):
     if frac < 1.0:  # masked: slots only need to be valid for the active ones
         n_cap = n_old + int(active.sum())
         old = old[:n_cap]
+    _check_kernel(cuda, old, q, v, active)
+
+
+def _check_kernel(cuda, old, q, v, active):
+    """One pass through the kernel and through the plain version on the
+    same CUDA tensors: equal, one launch, m == the active count."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
-    old_t = t(old)
-    ins, tmap, m = insert_maps(n_cap, t(q), t(v), t(active))
+    args = (t(old), t(q), t(v), t(active))
     before = merge_insert.launches
-    new_k, tab_k = merge_insert(old_t, ins[:n_cap], tmap)
-    new_p, tab_p = merge_insert_plain(old_t, ins[:n_cap], tmap)
+    new_k, tab_k, m_k = merge_insert(*args)
+    new_p, tab_p, m_p = merge_insert_slots(*args)
     torch.cuda.synchronize()
     assert merge_insert.launches == before + 1
-    assert int(m) == int(active.sum())
+    assert int(m_k) == int(m_p) == int(active.sum())
     assert torch.equal(new_k, new_p)
     assert torch.equal(tab_k, tab_p)
 
 
+EDGE_KINDS = ["unsorted", "inactive", "full_tile", "boundaries", "copy", "small",
+              "ragged", "under"]
+
+
+def _edge_case(kind, seed, tile):
+    """Shapes at the kernel's tile edges of ``tile`` positions (also run on
+    the CPU by tests/test_torch_merge.py and on the card by chip_smoke.py):
+    ``(buf, q, v, active)`` with active slots distinct and < n, in no order."""
+    r = np.random.default_rng(seed)
+    n, inactive_q = {"unsorted": 3 * tile, "inactive": 2 * tile + 300,
+                     "full_tile": 3 * tile + 50, "boundaries": 4 * tile + 3,
+                     "copy": 2 * tile + 77, "small": 1000, "ragged": 3 * tile + 45,
+                     "under": 2 * tile - 1}[kind], []
+    if kind == "full_tile":  # tile 1 is inserts only
+        rest = np.setdiff1d(np.arange(n), np.arange(tile, 2 * tile))
+        slots = np.concatenate([np.arange(tile, 2 * tile), r.choice(rest, 200, replace=False)])
+    elif kind == "boundaries":
+        edges = [k * tile + d for k in range(1, 5) for d in (-1, 0, 1)]
+        slots = np.array(sorted({0, n - 1, *[e for e in edges if e < n]}))
+    elif kind == "copy":
+        slots = np.zeros(0, np.int64)
+    else:
+        slots = r.choice(n, {"small": 100, "ragged": 2000, "under": 1500}.get(kind, 3000),
+                         replace=False)
+    if kind == "inactive":  # stale slots: equal to active ones, at or past n
+        inactive_q = np.concatenate([slots[:100], n + np.arange(100),
+                                     np.full(100, 2**31 - 1)])
+    q = np.concatenate([slots, inactive_q]).astype(np.int32)
+    active = np.arange(q.size) < slots.size
+    perm = r.permutation(q.size)
+    q, active = q[perm], active[perm]
+    v = r.integers(0, 6, q.size).astype(np.uint8)
+    n_old = n - slots.size - int(r.integers(0, 40))
+    buf = np.full(n, 7, np.uint8)
+    buf[:n_old] = r.integers(0, 6, n_old)
+    return buf, q, v, active
+
+
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_kernel_tile_edges_match_plain(cuda, kind):
+    from rust_msbwt_tpu_torch import _kernels
+
+    tile = _kernels.load().msbwt_merge_tile()
+    _check_kernel(cuda, *_edge_case(kind, len(kind), tile))
+
+
+def test_build_on_card_makes_no_insert_maps(cuda, monkeypatch):
+    """The stage loop on the card goes through the kernel alone: no insert
+    or shift map is made."""
+    def no_maps(*a, **k):
+        raise AssertionError("insert_maps called on the kernel path")
+
+    monkeypatch.setattr(merge_mod, "insert_maps", no_maps)
+    reads, lengths = _ragged(500, 31)
+    before = merge_insert.launches
+    idx, _ = build_msbwt_with_index(reads, lengths, device=cuda)
+    assert merge_insert.launches > before
+    assert idx.n == int(lengths.sum()) + 500
+
+
 def test_kernel_rejects_bad_input(cuda):
     old = torch.zeros(256, dtype=torch.uint8, device=cuda)
-    ins = torch.zeros(256, dtype=torch.int8, device=cuda)
-    tmap = torch.zeros(256, dtype=torch.int32, device=cuda)
+    q = torch.zeros(8, dtype=torch.int32, device=cuda)
+    v = torch.zeros(8, dtype=torch.uint8, device=cuda)
+    active = torch.zeros(8, dtype=torch.bool, device=cuda)
     with pytest.raises(TypeError):
-        merge_insert(old, ins.to(torch.int32), tmap)
+        merge_insert(old, q.long(), v, active)
     with pytest.raises(ValueError):
-        merge_insert(old, ins[:128], tmap)
+        merge_insert(old, q, v[:4], active)
     with pytest.raises(ValueError):
-        merge_insert(old, ins, tmap.cpu())
+        merge_insert(old, q, v, active.cpu())
+    with pytest.raises(ValueError):  # not on a 16-byte boundary
+        merge_insert(old[1:], q, v, active)
 
 
 @pytest.mark.parametrize("sorted_insert", [True, False])
@@ -112,7 +177,7 @@ def test_build_kernel_matches_plain(cuda, sorted_insert):
     reads, lengths = encode_reads(reads_l)
     idx_k, pk = build_msbwt_with_index(reads, lengths, sorted_insert, device=cuda)
     idx_p, pp = build_msbwt_with_index(reads, lengths, sorted_insert, device=cuda,
-                                       merge=merge_insert_plain)
+                                       merge=merge_insert_slots)
     assert torch.equal(idx_k.bwt, idx_p.bwt)
     assert torch.equal(pk.table, pp.table)
     assert torch.equal(idx_k.occ, idx_p.occ)
@@ -130,7 +195,7 @@ def test_extend_kernel_matches_plain(cuda, sorted_insert):
     base, base_packed = build_msbwt_with_index(base_reads, base_lens, device=cuda)
     reads, lengths = _ragged(1500, 24)
     out = {}
-    for name, merge in (("kernel", merge_insert), ("plain", merge_insert_plain)):
+    for name, merge in (("kernel", merge_insert), ("plain", merge_insert_slots)):
         before = merge_insert.launches
         out[name] = build_msbwt_with_index(
             reads, lengths, sorted_insert, base.bwt[: base.n], 2000,
@@ -151,7 +216,7 @@ def test_streamed_build_kernel_matches_plain(cuda):
         b.add_batch(reads[i: i + 700], lengths[i: i + 700])
     assert merge_insert.launches > before
     idx_p, _ = build_msbwt_with_index(reads, lengths, device=cuda,
-                                      merge=merge_insert_plain)
+                                      merge=merge_insert_slots)
     assert torch.equal(b.finish(device_out=True), idx_p.bwt[: idx_p.n])
 
 

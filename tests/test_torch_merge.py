@@ -1,4 +1,7 @@
-"""The port's merge-insert pass (plain twin of the CUDA kernel) on CPU.
+"""The port's merge-insert pass (the plain version of the CUDA kernel) on CPU.
+
+``merge_insert(old, q, v, active)`` on CPU tensors runs
+``merge_insert_slots`` (``insert_maps`` + ``merge_insert_plain``).
 
 Three cases run against the JAX package's own Pallas kernel in interpret
 mode (``merge_insert_phys(..., interpret=True)``, ~7 s each here): sparse,
@@ -24,6 +27,7 @@ from rust_msbwt_tpu_torch.ops.merge_insert import (
     packed_table_plain,
 )
 from rust_msbwt_tpu_torch.utils.convert import state_from_jax_phys
+from test_torch_gpu import EDGE_KINDS, _edge_case
 
 
 def _case(n_old, n_ins, extra, seed, frac_active=1.0, clustered_at=None):
@@ -69,8 +73,8 @@ def _oracle(buf, q, v, active):
 
 
 def _port(buf, q, v, active):
-    new, table, m = merge_insert_slots(torch.from_numpy(buf), torch.from_numpy(q),
-                                       torch.from_numpy(v), torch.from_numpy(active))
+    new, table, m = merge_insert(torch.from_numpy(buf), torch.from_numpy(q),
+                                 torch.from_numpy(v), torch.from_numpy(active))
     return new.numpy(), table.numpy(), int(m)
 
 
@@ -144,24 +148,26 @@ def test_packed_table_bit31_and_pad():
 
 def test_cpu_wrapper_runs_plain_and_counts_no_launch():
     buf, q, v, active = _case(1000, 100, 3, seed=9)
-    ins, tmap, _ = insert_maps(buf.size, torch.from_numpy(q), torch.from_numpy(v),
-                               torch.from_numpy(active))
+    q, v, active = torch.from_numpy(q), torch.from_numpy(v), torch.from_numpy(active)
+    ins, tmap, _ = insert_maps(buf.size, q, v, active)
     old = torch.from_numpy(buf)
     before = merge_insert.launches
-    a = merge_insert(old, ins[: buf.size], tmap)
+    a = merge_insert(old, q, v, active)
     b = merge_insert_plain(old, ins[: buf.size], tmap)
     assert merge_insert.launches == before
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert int(a[2]) == int(active.sum())
 
 
 def test_wrapper_raises_off_cpu_and_cuda():
     """A tensor that is neither on the CPU nor on a card is refused, never
     quietly computed by the plain version."""
     old = torch.empty(256, dtype=torch.uint8, device="meta")
-    ins = torch.empty(256, dtype=torch.int8, device="meta")
-    tmap = torch.empty(256, dtype=torch.int32, device="meta")
+    q = torch.empty(16, dtype=torch.int32, device="meta")
+    v = torch.empty(16, dtype=torch.uint8, device="meta")
+    active = torch.empty(16, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError):
-        merge_insert(old, ins, tmap)
+        merge_insert(old, q, v, active)
 
 
 def test_merge_writes_into_given_buffers():
@@ -175,3 +181,16 @@ def test_merge_writes_into_given_buffers():
     want_new, want_table = _oracle(buf, q, v, active)
     assert np.array_equal(out.numpy(), want_new)
     assert np.array_equal(table.numpy(), want_table)
+
+
+TILE = 16384  # positions per tile of the CUDA kernel (csrc/merge_insert.cu kTile)
+
+
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_merge_tile_edges_match_oracle(kind):
+    buf, q, v, active = _edge_case(kind, len(kind), TILE)
+    want_new, want_table = _oracle(buf, q, v, active)
+    new, table, m = _port(buf, q, v, active)
+    assert m == int(active.sum())
+    assert np.array_equal(new, want_new)
+    assert np.array_equal(table, want_table)
