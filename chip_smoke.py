@@ -50,7 +50,26 @@ Phases:
      engine gives them again. Last, 10,000 reads with one substitution each
      (an A, C, G or T turned into another of the four) must all come back
      equal to the originals from ``correct_reads(k=21, tau=2)`` on the card
- 11. one JSON line of kernel results, then ``{"ok": true, "device": ...}``
+ 11. the H-M merge and the multi-device layer (``parallel/``), on phase 6's
+     reads and BWT: (a) the sorted reads cut into 4 contiguous groups, as
+     ``build_msbwt_sharded`` cuts them for D = 4, each built on the card
+     through the kernel (counts reset just before), then
+     ``multiway_bwt_merge`` of the four with sources: equal to phase 6's
+     BWT byte for byte (wall time, rounds, peak device memory, merged
+     symbols/s); (b) two 1M-read partials (101M symbols each):
+     ``pairwise_bwt_merge`` == ``multiway_bwt_merge`` == ``kway_merge``
+     under ``MSBWT_TPU_MERGE=tree`` == a build of their 2M reads (rounds and
+     time of each); (c) phase 6's reads as FASTA through ``python -m
+     torch.distributed.run --nproc-per-node 1 -m
+     rust_msbwt_tpu_torch.cli.build --distributed`` (NCCL, world size 1):
+     its npy bytes == phase 6's BWT saved with ``save_bwt_runs``; (d) 50,000
+     of the reads on 4 gloo ranks sharing ``cuda:0``
+     (``tests/_torch_dist_worker.py``): ``build_msbwt_sharded`` (tree,
+     sharded dense, sharded ragged), ``sharded_doubling_merge`` of the four
+     groups' BWTs, ``count_kmers_sharded`` and ``count_kmers_partitioned``
+     of 20,000 21-mers: every rank's result == the single-device build and
+     counts on the card
+ 12. one JSON line of kernel results, then ``{"ok": true, "device": ...}``
 """
 
 from __future__ import annotations
@@ -66,6 +85,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_READS, READ_LEN, K, N_QUERIES, N_CHECK = 5_000_000, 100, 21, 1_000_000, 20_000
 BATCH, N_EXTRACT, N_LOCATE = 1_000_000, 100_000, 1_000
 N_CORRECT = 10_000
+N_PARTS, N_PAIR, N_GLOO, N_GLOO_KMERS = 4, 1_000_000, 50_000, 20_000  # phase 11
 DEEP_K = 11  # the deepest prefix cache phase 10 builds
 
 
@@ -179,8 +199,7 @@ def phase_kernel(torch, dev, parent=None):
         merge_insert_slots,
     )
 
-    sys.path.insert(0, os.path.join(HERE, "tests"))
-    from test_torch_gpu import EDGE_KINDS, _edge_case
+    from test_torch_gpu import EDGE_KINDS, _edge_case  # tests/ (on sys.path)
 
     tile = _kernels.load().msbwt_merge_tile()
     shapes = [
@@ -673,6 +692,185 @@ def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8,
     return launches
 
 
+def phase_merge_parts(torch, np, dev, reads, lengths, idx):
+    """Phase 11a: the sorted reads in four groups, built through the kernel
+    (launches counted), merged in one doubling run == phase 6's BWT."""
+    from rust_msbwt_tpu_torch.ops.bcr import build_msbwt
+    from rust_msbwt_tpu_torch.ops.merge import multiway_bwt_merge
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+    from rust_msbwt_tpu_torch.utils.native import sort_rows_native
+
+    order = sort_rows_native(reads)
+    s_reads, s_lengths = reads[order], lengths[order]
+    nl = -(-N_READS // N_PARTS)
+    # --- the parts' builds: counts reset just before, read just after ---
+    torch.cuda.synchronize()
+    merge_insert.launches = 0
+    t0 = time.perf_counter()
+    parts = [build_msbwt(s_reads[g * nl: (g + 1) * nl], s_lengths[g * nl: (g + 1) * nl],
+                         device=dev, device_out=True) for g in range(N_PARTS)]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = merge_insert.launches
+    # --- end of the parts' builds ---
+    del s_reads, s_lengths
+    check(launches > 0, "the parts' builds launched no merge kernel")
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    merged, srcs = multiway_bwt_merge(parts, return_sources=True, stats=stats)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(torch.equal(merged, idx.bwt[: idx.n]), "4-part merge != phase 6's BWT")
+    sizes = [int(p.numel()) for p in parts]
+    check(srcs.dtype == torch.int32
+          and torch.bincount(srcs.long(), minlength=N_PARTS).tolist() == sizes,
+          "merged source ids do not count the parts' sizes")
+    log(f"[merge-parts] {N_PARTS} groups of sorted reads built in {build_s:.3f} s "
+        f"({sizes} symbols; merge kernel launches {launches}); multiway_bwt_merge "
+        f"{merge_s:.3f} s, {stats['rounds']} rounds -> {idx.n / merge_s / 1e6:.1f}M merged "
+        f"symbols/s; peak device memory {peak / 2**30:.2f} GiB ({(peak - resident) / 2**30:.2f} "
+        f"GiB above the {resident / 2**30:.2f} GiB resident); equal to phase 6's BWT, "
+        "source ids count the parts")
+    return launches
+
+
+def phase_pairwise(torch, np, dev, reads, lengths):
+    """Phase 11b: two 1M-read partials: H-M == doubling == the H-M tree ==
+    a build of their 2M reads."""
+    from rust_msbwt_tpu_torch.ops.bcr import build_msbwt
+    from rust_msbwt_tpu_torch.ops.merge import kway_merge, multiway_bwt_merge, pairwise_bwt_merge
+
+    halves = [build_msbwt(reads[i * N_PAIR: (i + 1) * N_PAIR],
+                          lengths[i * N_PAIR: (i + 1) * N_PAIR], device=dev, device_out=True)
+              for i in range(2)]
+    want = build_msbwt(reads[: 2 * N_PAIR], lengths[: 2 * N_PAIR], device=dev, device_out=True)
+
+    def tree(st):
+        os.environ["MSBWT_TPU_MERGE"] = "tree"
+        try:
+            return kway_merge(halves, stats=st)
+        finally:
+            del os.environ["MSBWT_TPU_MERGE"]
+
+    out = {}
+    for name, fn in (("pairwise_bwt_merge", lambda st: pairwise_bwt_merge(*halves, stats=st)),
+                     ("multiway_bwt_merge", lambda st: multiway_bwt_merge(halves, stats=st)),
+                     ("kway_merge (tree)", tree)):
+        st = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(st)
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0, "rounds": st["rounds"]}
+        check(torch.equal(got, want), f"{name} of two 1M-read partials != their build")
+    log(f"[pairwise] two partials of {[int(h.numel()) for h in halves]} symbols: "
+        + "; ".join(f"{k} {v['s']:.3f} s, {v['rounds']} rounds" for k, v in out.items())
+        + "; all equal to the build of the 2M reads")
+    return out
+
+
+def write_fasta(np, reads, path):
+    """The reads (fixed length, symbols 1..5) as FASTA records ``>r``."""
+    n, width = reads.shape
+    rec = np.empty((n, width + 4), np.uint8)
+    rec[:, :3] = np.frombuffer(b">r\n", np.uint8)
+    rec[:, 3: 3 + width] = np.frombuffer(b"$ACGNT", np.uint8)[reads]
+    rec[:, -1] = ord("\n")
+    rec.tofile(path)
+
+
+def phase_distributed_cli(np, idx, reads, d):
+    """Phase 11c: ``msbwt2-build --distributed`` under torchrun, NCCL, world
+    size 1, at full width: its npy == phase 6's BWT through save_bwt_runs."""
+    import re
+
+    from rust_msbwt_tpu_torch.ops.rle import runs_from_symbols
+    from rust_msbwt_tpu_torch.utils.npy import save_bwt_runs
+    from _torch_dist_worker import free_port  # tests/ (on sys.path)
+
+    fa, out, want = (os.path.join(d, f) for f in ("reads.fa", "dist.npy", "want.npy"))
+    write_fasta(np, reads, fa)
+    save_bwt_runs(*runs_from_symbols(idx.bwt[: idx.n].cpu().numpy()), want)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+           "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
+           "-m", "rust_msbwt_tpu_torch.cli.build", "--distributed", "-o", out, fa]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                         capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stderr[-4000:], file=sys.stderr)
+    check(res.returncode == 0, f"torchrun --distributed build exited {res.returncode}")
+    found = re.search(r"over (\w+) .*\n(?s:.*)merge kernel launches (\d+)", res.stderr)
+    check(found is not None, "the distributed build logged no backend or launch count")
+    backend, launches = found.group(1), int(found.group(2))
+    same = open(out, "rb").read() == open(want, "rb").read()
+    check(same, "distributed build npy != phase 6's BWT")
+    check(backend == "nccl" and launches > 0,
+          f"distributed build: backend {backend}, merge kernel launches {launches}")
+    # the child's own log clock: its start, group joined, records parsed,
+    # BWT built and merged, file written
+    marks = ["Input parameters", "torch.distributed: rank", "records [", "symbols merged",
+             "Processes successfully finished"]
+    stamps = []
+    for mark in marks:
+        line = next(ln for ln in res.stderr.splitlines() if mark in ln)
+        stamps.append(time.mktime(time.strptime(line[1:20], "%Y-%m-%d %H:%M:%S"))
+                      + int(line[21:24]) / 1e3)
+    steps = [b - a for a, b in zip(stamps, stamps[1:])]
+    log(f"[distributed] torchrun --nproc-per-node 1 ... cli.build --distributed on "
+        f"{os.path.getsize(fa)} bytes of FASTA: child wall {wall:.3f} s (its log: group "
+        f"join {steps[0]:.3f} s, FASTA parse {steps[1]:.3f} s, build + merge {steps[2]:.3f} s, "
+        f"RLE + write {steps[3]:.3f} s), backend {backend}, world size 1, merge kernel "
+        f"launches {launches}; npy ({os.path.getsize(out)} bytes) identical to phase 6's BWT")
+    return launches, wall
+
+
+def phase_gloo_ranks(torch, np, dev, reads, lengths, d):
+    """Phase 11d: 4 gloo ranks sharing cuda:0 on 50,000 reads: every
+    parallel/ path == the single-device build and counts on the card."""
+    from rust_msbwt_tpu_torch.ops.bcr import build_msbwt, build_msbwt_with_index
+    from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
+    from rust_msbwt_tpu_torch.utils.native import sort_rows_native
+    from _torch_dist_worker import run_ranks  # tests/ (on sys.path)
+
+    reads, lengths = reads[:N_GLOO], lengths[:N_GLOO]
+    rng = np.random.default_rng(0x610)
+    rows = rng.integers(0, N_GLOO, N_GLOO_KMERS)
+    offs = rng.integers(0, READ_LEN - K + 1, N_GLOO_KMERS)
+    kmers = reads[rows[:, None], offs[:, None] + np.arange(K)[None, :]]
+    idx, packed = build_msbwt_with_index(reads, lengths, device=dev)
+    dec = idx.bwt[: idx.n].cpu().numpy()
+    counts = count_kmers_packed(packed, kmers)
+    order = sort_rows_native(reads)
+    nl = -(-N_GLOO // N_PARTS)
+    parts = [build_msbwt(reads[order[g * nl: (g + 1) * nl]], lengths[order[g * nl: (g + 1) * nl]],
+                         device=dev) for g in range(N_PARTS)]
+    inputs = dict(reads=reads, lengths=lengths, kmers=kmers,
+                  klens=np.full(N_GLOO_KMERS, K, np.int32), decoded=dec,
+                  parts=np.concatenate(parts), part_sizes=np.array([p.size for p in parts]))
+    cases = ["build_tree", "build_dense", "build_ragged", "doubling", "sharded_index",
+             "partitioned"]
+    t0 = time.perf_counter()
+    ranks = run_ranks(N_PARTS, cases, inputs, d, device=str(dev), timeout_s=300)
+    wall = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        for case in ("build_tree", "build_dense", "build_ragged", "doubling"):
+            check(np.array_equal(out[f"{case}.bwt"], dec), f"gloo rank {r}: {case} != the build")
+        for case in ("sharded_index", "partitioned"):
+            check(np.array_equal(out[f"{case}.counts"], counts),
+                  f"gloo rank {r}: {case} counts != the single-device counts")
+    log(f"[gloo] backend gloo, {N_PARTS} ranks sharing {dev} (no collective staged through "
+        f"the host): {N_GLOO} reads ({dec.size} symbols), {N_GLOO_KMERS} {K}-mers; "
+        f"build_msbwt_sharded tree / sharded dense / sharded ragged, sharded_doubling_merge, "
+        f"count_kmers_sharded and count_kmers_partitioned on every rank equal the "
+        f"single-device build and counts; {wall:.3f} s with the ranks' start")
+    return wall
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -688,6 +886,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, "tests"))  # the edge shapes, the gloo ranks
     try:
         import numpy as np
 
@@ -724,6 +923,15 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as d:
         launches_query = phase_query_tiers(torch, np, dev, reads, idx, packed, kmers,
                                            counts, cache8, rle, d)
+    del cache8, rle, packed
+    launches_parts = phase_merge_parts(torch, np, dev, reads, lengths, idx)
+    torch.cuda.empty_cache()
+    phase_pairwise(torch, np, dev, reads, lengths)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        launches_dist, _ = phase_distributed_cli(np, idx, reads, d)
+    with tempfile.TemporaryDirectory() as d:
+        phase_gloo_ranks(torch, np, dev, reads, lengths, d)
 
     print(json.dumps({"kernels": [{
         "name": "merge_insert",
@@ -734,6 +942,8 @@ def main(argv=None) -> int:
         "launches_stream": launches_stream,
         "launches_load_extend": launches_load_extend,
         "launches_query": launches_query,
+        "launches_merge_parts": launches_parts,
+        "launches_distributed": launches_dist,
         "max_abs_err": max_err,
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],

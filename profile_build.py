@@ -30,6 +30,11 @@ timed. Then:
    idle share of the unprofiled wall time, the device events per call and
    the top device kernels and copies. The walk's share of the stage loop
    and of the entry point comes from the unprofiled walls of this process.
+3. Unless ``--no-profile``: one round of ``chip_smoke.py`` phase 11a's
+   doubling merge (``ops.merge._doubling_round``: the sorted reads in four
+   groups, each built on the card, merged at 505M symbols), from the state
+   ``_doubling_init`` leaves: once unprofiled, once profiled, with the share
+   of the round's device time spent in sort kernels.
 
 Host timers wrap ``torch.cuda.synchronize()``. The card's name and power
 limit are printed first; the last line is one JSON object holding every
@@ -67,11 +72,12 @@ def wall_time(torch, fn) -> float:
     return time.perf_counter() - t0
 
 
-def profiled(torch, fn, label: str, top: int) -> dict:
+def profiled(torch, fn, label: str, top: int, share_of: str | None = None) -> dict:
     """Run ``fn()`` once unprofiled (its wall time: the profiler's CPU
     tracing slows every launch) and once under ``torch.profiler`` (its
     summed device time, device events and top events); print and return
-    them."""
+    them. ``share_of``: also the share of the device time in events whose
+    name holds that word (any case)."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = wall_time(torch, fn)
@@ -94,8 +100,39 @@ def profiled(torch, fn, label: str, top: int) -> dict:
         log(f"[{label}]   {ms:10.3f} ms  x{e.count:<5d} {e.key[:100]}")
     if not evts:
         log(f"[{label}] the profiler recorded no device time")
-    return {"wall_s": wall, "profiled_wall_s": prof_wall, "device_s": dev_s,
-            "device_events": n_events, "top": rows}
+    out = {"wall_s": wall, "profiled_wall_s": prof_wall, "device_s": dev_s,
+           "device_events": n_events, "top": rows}
+    if share_of:
+        part = sum(_device_us(e) for e in evts if share_of in e.key.lower()) * 1e-6
+        out[f"{share_of}_share"] = part / dev_s if dev_s else None
+        log(f"[{label}] '{share_of}' kernels: {part:.4f} s, "
+            f"{100 * part / dev_s if dev_s else 0:.1f}% of the device time")
+    return out
+
+
+def profile_merge_round(torch, np, dev, reads, lengths, top: int) -> dict:
+    """One doubling round of chip_smoke.py phase 11a's four-part merge at
+    505M symbols, from the state ``_doubling_init`` leaves."""
+    from chip_smoke import N_PARTS, N_READS
+    from rust_msbwt_tpu_torch.ops.bcr import build_msbwt
+    from rust_msbwt_tpu_torch.ops.merge import _doubling_init, _doubling_round
+    from rust_msbwt_tpu_torch.utils.native import sort_rows_native
+
+    order = sort_rows_native(reads)
+    nl = -(-N_READS // N_PARTS)
+    parts = [build_msbwt(reads[order[g * nl: (g + 1) * nl]], lengths[order[g * nl: (g + 1) * nl]],
+                         device=dev, device_out=True) for g in range(N_PARTS)]
+    syms = torch.cat(parts)
+    sizes = [int(p.numel()) for p in parts]
+    del parts
+    init_s = wall_time(torch, lambda: _doubling_init(syms, sizes, False))
+    rank, succ = _doubling_init(syms, sizes, False)
+    out = profiled(torch, lambda: _doubling_round(rank, succ, False), "doubling round", top,
+                   share_of="sort")
+    out["init_s"] = init_s
+    log(f"[doubling round] {syms.numel()} symbols in {N_PARTS} parts: init (psi sort + "
+        f"first ranks) {init_s:.4f} s; one round {out['wall_s']:.4f} s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -228,6 +265,8 @@ def main(argv=None) -> int:
             f"{100 * walk['wall_s'] / entry_s:.1f}% of the whole extend build "
             f"({entry_s:.4f} s, host prep included)")
         result.update(terminator_walk=walk, extend_loop=loop, extend_build_s=entry_s)
+        del base, bpacked
+        result["merge_round"] = profile_merge_round(torch, np, dev, reads, lengths, args.top)
     print(json.dumps(result))
     return 0
 

@@ -15,14 +15,19 @@ Layer map (mirrors the JAX package):
   * ``ops.bcr``           — batched column-wise BWT construction and
                             extension (terminator search, LF walks)
   * ``ops.extract``       — read recovery: ``extract_reads``, ``locate_kmers``
+  * ``ops.merge``         — Holt–McMillan merge and the D-way doubling merge
+  * ``parallel``          — the multi-device layer on ``torch.distributed``:
+                            sharded merges, builds and indexes, the
+                            partitioned index, the ``--distributed`` build
   * ``models.dynamic``    — ``DynamicBWT`` construction engine (insert,
                             load, extend)
   * ``models.rle_bwt``    — ``RleBWT`` static query engine
   * ``utils``             — npy container, FASTX, native host library,
-                            streamed builds (``streaming``), JAX-state
-                            converters for the parity tests
-  * ``cli``               — ``build``, ``query`` and ``extract`` command
-                            lines
+                            streamed builds (``streaming``), the test
+                            oracle, JAX-state converters for the parity
+                            tests
+  * ``cli``               — ``build``, ``query``, ``extract``, ``correct``
+                            and ``convert`` command lines
 
 Nothing is imported here eagerly: ``import rust_msbwt_tpu_torch`` costs
 nothing and builds nothing. CUDA kernels are compiled at first use

@@ -1,15 +1,20 @@
 """``msbwt2-build`` on the port: FASTX file(s) -> MSBWT -> npy or stdout.
 
     python -m rust_msbwt_tpu_torch.cli.build [-o OUT.npy] [--unsorted]
-        [--batch-size N] [--device cuda|cpu] FASTX [FASTX ...]
+        [--batch-size N] [--distributed] [--device cuda|cpu] FASTX [FASTX ...]
 
 Flag surface mirrors the reference (ref: src/bin/msbwt2-build.rs:23-41) and
 the JAX package's ``cli.build``: ``-o/--out-bwt`` (default stdout), one or
 more positional FASTX files (FASTA/FASTQ, gzip accepted), ``--unsorted``
 for chronological insertion, ``--batch-size N`` to stream the reads
 through the builder N at a time (each batch extends the BWT on the device),
-plus ``--device`` (default ``cuda``). The JAX CLI's ``--distributed`` is
-not ported yet.
+``--distributed`` for a build over the ranks of a ``torch.distributed``
+group (``parallel.multihost``: one process per card, NCCL; gloo with
+``--device cpu``; rank 0 writes the output, the other ranks exit 0), plus
+``--device`` (default ``cuda``)::
+
+    torchrun --nproc-per-node 4 -m rust_msbwt_tpu_torch.cli.build \\
+        --distributed -o out.npy reads.fq.gz
 
 Exit codes follow the reference: 66 NOINPUT, 73 CANTCREAT, 74 IOERR
 (ref: src/bin/msbwt2-build.rs:68,80,91,108).
@@ -53,6 +58,13 @@ def main(argv=None) -> int:
         "memory; 0 = one batch per file)",
     )
     parser.add_argument(
+        "--distributed", action="store_true",
+        help="Build over the ranks of a torch.distributed group: each rank "
+        "builds its record stripe, a distributed D-way merge combines them; "
+        "launch one process per card with torchrun (see "
+        "parallel/multihost.py)",
+    )
+    parser.add_argument(
         "--device", default="cuda",
         help="torch device to build on (default: cuda)",
     )
@@ -73,6 +85,8 @@ def main(argv=None) -> int:
     )
     if args.batch_size > 0:
         logger.info("\tbatch size: %d", args.batch_size)
+    if args.distributed:
+        logger.info("\tdistributed: yes")
     logger.info("\tdevice: %s", args.device)
 
     for fn in args.FASTX:
@@ -95,24 +109,38 @@ def main(argv=None) -> int:
     from rust_msbwt_tpu_torch.utils.npy import save_bwt_runs
 
     try:
-        if args.batch_size > 0:
-            bwt = dynamic.create_from_fastx_streaming(
-                args.FASTX, sorted_strings, args.batch_size, device=args.device)
+        if args.distributed:
+            from rust_msbwt_tpu_torch.parallel import mesh
+            from rust_msbwt_tpu_torch.parallel.multihost import (
+                build_from_fastx_distributed,
+            )
+
+            try:
+                decoded, is_zero = build_from_fastx_distributed(
+                    args.FASTX, sorted_strings, device=args.device)
+            finally:
+                mesh.shutdown()
+            if not is_zero:  # only rank 0 writes output
+                logger.info("Non-zero rank finished; skipping output.")
+                return 0
+        elif args.batch_size > 0:
+            decoded = dynamic.create_from_fastx_streaming(
+                args.FASTX, sorted_strings, args.batch_size, device=args.device).to_vec()
         else:
-            bwt = dynamic.create_from_fastx(args.FASTX, sorted_strings,
-                                            device=args.device)
+            decoded = dynamic.create_from_fastx(args.FASTX, sorted_strings,
+                                               device=args.device).to_vec()
     except (OSError, ValueError) as e:  # parse errors
         logger.error("Error while parsing FASTX files: %s", args.FASTX)
         logger.error("Error: %s", e)
         return EX_IOERR
 
     if args.out_bwt == "stdout":
-        sys.stdout.write(convert_itos(bwt.to_vec()))
+        sys.stdout.write(convert_itos(decoded))
         sys.stdout.write("\n")
     else:
         logger.info("Saving results to file: %r", args.out_bwt)
         try:
-            syms, counts = runs_from_symbols(bwt.to_vec())
+            syms, counts = runs_from_symbols(decoded)
             save_bwt_runs(syms, counts, args.out_bwt)
         except OSError as e:
             logger.error("Error saving BWT to file: %r", args.out_bwt)

@@ -1,9 +1,10 @@
 """Card tests of the port: the merge-insert CUDA kernel against its plain
 PyTorch twin on the same CUDA tensors — one pass, a build, an extend build
-onto a non-empty base, and a streamed build — and the query tiers (pair
-index, run tier, a chunked deep prefix cache, ``RleBWT``'s policy) on the
-card against the same functions on the CPU. Bit-exact throughout
-(tolerance 0: every output is an integer).
+onto a non-empty base, and a streamed build — the query tiers (pair index,
+run tier, a chunked deep prefix cache, ``RleBWT``'s policy), the H-M and
+doubling merges and two gloo ranks sharing the card, each against the same
+functions on the CPU. Bit-exact throughout (tolerance 0: every output is an
+integer).
 
 Marked ``gpu``; without a card every test skips (the decision is made in a
 fixture, never at import time). This file imports no jax, so it runs on a
@@ -294,3 +295,68 @@ def test_rle_bwt_policy_on_card(cuda, monkeypatch):
         counts.append(bwt.count_kmers(kmers, lengths))
         assert bwt._pair_index is not None and bwt._cache_k == 3
     assert np.array_equal(counts[0], counts[1])
+
+
+def _merge_parts(seed, d, n_reads=300):
+    r = np.random.default_rng(seed)
+    reads_l = [r.integers(1, 6, r.integers(1, 80)).astype(np.uint8) for _ in range(n_reads)]
+    reads_l += reads_l[:20]  # identical reads across parts: the tie order
+    return [build_msbwt(*encode_reads(reads_l[i::d]), device="cpu") for i in range(d)]
+
+
+@pytest.mark.parametrize("fn", ["pairwise", "interleave", "multiway", "multiway_wide",
+                                "kway_tree"])
+def test_merges_match_cpu(cuda, fn, monkeypatch):
+    """``ops.merge`` on ``cuda`` tensors == the same function on the CPU;
+    the card's result stays on the card."""
+    from rust_msbwt_tpu_torch.ops import merge
+
+    parts = _merge_parts(31, 4)
+    calls = {
+        "pairwise": lambda ps: merge.pairwise_bwt_merge(ps[0], ps[1]),
+        "interleave": lambda ps: merge.merge_interleave(ps[0], ps[1]),
+        "multiway": lambda ps: merge.multiway_bwt_merge(ps, return_sources=True),
+        "multiway_wide": lambda ps: merge.multiway_bwt_merge(ps, force_wide=True,
+                                                             return_sources=True),
+        "kway_tree": lambda ps: merge.kway_merge(ps),
+    }
+    if fn == "kway_tree":
+        monkeypatch.setenv("MSBWT_TPU_MERGE", "tree")
+    outs = []
+    for dev in ("cpu", cuda):
+        got = calls[fn]([torch.from_numpy(p).to(dev) for p in parts])
+        got = got if isinstance(got, tuple) else (got,)
+        assert all(t.device.type == torch.device(dev).type for t in got)
+        outs.append([t.cpu() for t in got])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two gloo ranks on ``cuda:0`` (NCCL refuses two ranks on one card):
+    the sharded builds, the doubling merge and both distributed counts
+    equal the single-device results on the CPU."""
+    from rust_msbwt_tpu_torch.ops.merge import multiway_bwt_merge
+    from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
+    from _torch_dist_worker import run_ranks  # tests/ is on sys.path
+
+    r = np.random.default_rng(41)
+    reads, lengths = _ragged(400, 43)
+    parts = _merge_parts(47, 3, 200)
+    kmers = r.integers(1, 6, (300, 7)).astype(np.uint8)
+    klens = r.integers(1, 8, 300).astype(np.int32)
+    idx, packed = build_msbwt_with_index(reads, lengths, device="cpu")
+    dec = idx.bwt[: idx.n].numpy()
+    inputs = dict(reads=reads, lengths=lengths, kmers=kmers, klens=klens, decoded=dec,
+                  parts=np.concatenate(parts), part_sizes=np.array([p.size for p in parts]))
+    cases = ["build_tree", "build_dense", "build_ragged", "doubling", "sharded_index",
+             "partitioned", "multihost"]
+    ranks = run_ranks(2, cases, inputs, str(tmp_path), device="cuda:0", timeout_s=180)
+    merged, srcs = multiway_bwt_merge(parts, return_sources=True, device="cpu")
+    counts = count_kmers_packed(packed, kmers, klens)
+    for out in ranks:
+        for case in ("build_tree", "build_dense", "build_ragged", "multihost"):
+            assert np.array_equal(out[f"{case}.bwt"], dec), case
+        assert np.array_equal(out["doubling.bwt"], merged)
+        assert np.array_equal(out["doubling.src"], srcs)
+        assert np.array_equal(out["sharded_index.counts"], counts)
+        assert np.array_equal(out["partitioned.counts"], counts)

@@ -166,7 +166,9 @@ _DOCTEST_MODULES = [
     "ops.rle", "ops.rank", "ops.packed_rank", "ops.bcr", "models.core",
     "models.dynamic", "models.rle_bwt", "utils.npy", "utils.fastx", "utils.checks",
     "ops.extract", "utils.streaming", "ops.pair_rank", "ops.run_rank",
-    "utils.checkpoint", "apps.correct",
+    "utils.checkpoint", "apps.correct", "utils.oracle", "ops.merge",
+    "parallel.sharded_merge", "parallel.doubling_merge", "parallel.sharded_build",
+    "parallel.sharded_index", "parallel.partitioned", "parallel.multihost",
 ]
 
 
