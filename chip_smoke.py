@@ -7,13 +7,15 @@ Builds the port's CUDA kernels from ``rust_msbwt_tpu_torch/csrc`` and drives
 its paths at the repo's flagship size (5M x 100 bp reads from a 4.6 Mbase
 random genome, 505M BWT symbols, 1M 21-mer queries): the one-shot build
 with index and k-mer counting, the streamed build, load-and-extend, read
-recovery and the query side. It never falls back to the CPU and catches no
+recovery, the query side and the merges; then long reads (500k x 1,000 bp)
+at radix 1 and 2 and the query-tier budget at 1.515G symbols. It never falls back to the CPU and catches no
 failure: any phase that fails ends the run with a traceback and a non-zero
 exit code, and no result line.
 
 Phases:
   1. card check (``nvidia-smi`` name and power limit; no CUDA -> exit 2)
-  2. kernel build (time + ``-Xptxas -v``)
+  2. kernel build (time + ``-Xptxas -v``), then ``session_health`` (dispatch
+     round trip, bf16 matmul rate, memory rate)
   3. merge-insert kernel against its plain PyTorch version on the card,
      exact, at small shapes, at the tile edge shapes of
      ``tests/test_torch_gpu.py`` and at one 505M-symbol pass with 5M
@@ -69,11 +71,27 @@ Phases:
      groups' BWTs, ``count_kmers_sharded`` and ``count_kmers_partitioned``
      of 20,000 21-mers: every rank's result == the single-device build and
      counts on the card
- 12. one JSON line of kernel results, then ``{"ok": true, "device": ...}``
+ 12. long reads and the query-tier budget: (a) 500,000 x 1,000 bp reads from
+     the same genome (500.5M symbols) built with index at radix 1 and at
+     radix 2 (``MSBWT_TPU_RADIX``, counts reset before each): equal BWTs
+     and packed tables, 1,001 and 501 merge passes; the entry point timed
+     twice and the device loop three times for each, in turns, then the
+     inputs of the last radix-2 pass of one more device loop through the
+     kernel and the plain pass on the card: equal; (b) 20,000 of
+     them at radix 2 through the plain pass on the card == the kernel; (c)
+     the BWT of the first 400,000 loaded from RLE bytes and extended by the
+     last 100,000 at the automatic radix (counts reset just before) == (a)'s
+     BWT; (d) phase 6 checks its 101 passes (radix 1 at 100 bp); (e) 15M x
+     100 bp (1.515G symbols) built (counts reset just before) and encoded to
+     RLE bytes in memory: ``RleBWT`` with its default budget (the card's)
+     must pick pair + 6^9, with ``MSBWT_TPU_DEVICE_BUDGET_GB=12`` the run
+     tier; their 1M counts == the packed tier's; each tier's peak memory
+ 13. one JSON line of kernel results, then ``{"ok": true, "device": ...}``
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -87,6 +105,8 @@ BATCH, N_EXTRACT, N_LOCATE = 1_000_000, 100_000, 1_000
 N_CORRECT = 10_000
 N_PARTS, N_PAIR, N_GLOO, N_GLOO_KMERS = 4, 1_000_000, 50_000, 20_000  # phase 11
 DEEP_K = 11  # the deepest prefix cache phase 10 builds
+LONG_READS, LONG_LEN, LONG_SMALL, LONG_BASE = 500_000, 1_000, 20_000, 400_000  # phase 12
+BIG_READS = 15_000_000  # phase 12e: 15M x 100 bp, 1.515G symbols
 
 
 def log(msg: str) -> None:
@@ -118,10 +138,28 @@ def ecoli_config(np):
     starts = rng.integers(0, genome.size - READ_LEN, N_READS)
     reads = genome[starts[:, None] + np.arange(READ_LEN)[None, :]]
     lengths = np.full(N_READS, READ_LEN, np.int32)
-    rows = rng.integers(0, N_READS, N_QUERIES)
-    offs = rng.integers(0, READ_LEN - K + 1, N_QUERIES)
-    kmers = reads[rows[:, None], offs[:, None] + np.arange(K)[None, :]]
-    return reads, lengths, kmers
+    return reads, lengths, draw_kmers(np, rng, reads)
+
+
+def draw_kmers(np, rng, reads, n=N_QUERIES):
+    """``n`` K-mers cut from the reads at random rows and offsets."""
+    rows = rng.integers(0, reads.shape[0], n)
+    offs = rng.integers(0, reads.shape[1] - K + 1, n)
+    return reads[rows[:, None], offs[:, None] + np.arange(K)[None, :]]
+
+
+def genome_reads(np, n_reads, read_len, seed):
+    """``n_reads`` x ``read_len`` reads from the flagship's 4.6 Mbase genome
+    (the first draw of seed 0xEC011) at starts drawn from ``seed``, cut in
+    chunks of 16M symbols (no n x L int64 index at once)."""
+    genome = np.random.default_rng(0xEC011).integers(1, 6, size=4_600_000, dtype=np.uint8)
+    starts = np.random.default_rng(seed).integers(0, genome.size - read_len, n_reads)
+    reads = np.empty((n_reads, read_len), np.uint8)
+    ar = np.arange(read_len)
+    step = max(1, 2**24 // read_len)
+    for i in range(0, n_reads, step):
+        reads[i: i + step] = genome[starts[i: i + step, None] + ar]
+    return reads, np.full(n_reads, read_len, np.int32)
 
 
 def card_line() -> str:
@@ -133,17 +171,11 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps):
-    """Mean device milliseconds of ``fn()`` over ``reps`` launches."""
-    import torch
+    """Mean device milliseconds of ``fn()`` over ``reps`` back-to-back
+    launches after one warm-up, between two CUDA events."""
+    from rust_msbwt_tpu_torch.utils.profiling import timeit
 
-    fn()  # warm-up
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return timeit(fn, reps=reps) * 1e3
 
 
 def merge_case(n_old, n_ins, seed, frac_active=1.0, clustered=False, extra=0):
@@ -165,9 +197,6 @@ def merge_case(n_old, n_ins, seed, frac_active=1.0, clustered=False, extra=0):
     v = rng.integers(0, 6, n_ins).astype(np.uint8)
     perm = rng.permutation(n_ins)  # a stage's slots come in read order, not sorted
     return old, q[perm].astype(np.int32), v[perm], active[perm]
-
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
 
 
 def load_parent_kernels(parent):
@@ -242,12 +271,14 @@ def time_505m(torch, args, new_k, tab_k, parent_lib, insert_maps, merge_insert,
               merge_insert_slots):
     """Times of the 505M pass: the kernel (prep included: it takes the slots),
     the plain version, and the parent's Form 1 prep + kernel in turns."""
+    from rust_msbwt_tpu_torch.utils.profiling import DEFAULT_HBM_BW
+
     old_t, q_t, v_t, a_t = args
     n, N = old_t.shape[0], q_t.shape[0]
     out, tab = torch.empty_like(new_k), torch.empty_like(tab_k)
     nb = tab.shape[0] - 1
     bound_bytes = 2 * n + 6 * N + tab.numel() * 4  # old, q/v/active, new, table
-    times = {"bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3}
+    times = {"bound_ms": bound_bytes / DEFAULT_HBM_BW * 1e3}
     new_fn = lambda: merge_insert(*args, out=out, table=tab)  # noqa: E731
     turns = [("new", new_fn), ("new", new_fn)]
     if parent_lib is not None:
@@ -355,15 +386,12 @@ def phase_extend_10k(torch, np, dev):
 
 
 def median_s(torch, fn, reps=3):
-    """Median wall seconds of ``fn()`` over ``reps`` calls (each ends in a
-    host copy of its result, so no extra synchronize is needed)."""
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        times.append(time.perf_counter() - t0)
-    return sorted(times)[len(times) // 2], out
+    """Median wall seconds of ``fn()`` over ``reps`` fenced calls, and the
+    last call's result."""
+    from rust_msbwt_tpu_torch.utils.profiling import timed
+
+    runs = [timed(fn) for _ in range(reps)]
+    return sorted(s for s, _ in runs)[len(runs) // 2], runs[-1][1]
 
 
 def phase_main(torch, np, dev, reads, lengths, kmers):
@@ -403,7 +431,8 @@ def phase_main(torch, np, dev, reads, lengths, kmers):
     log(f"[main] 6^8 cache {cache_s:.3f} s; 1M x {K}-mer counts median "
         f"{q_s:.3f} s -> {N_QUERIES / q_s:.0f} q/s (host in/out included); "
         f"mean count {counts.mean():.2f}")
-    check(launches > 0, "the main path launched no merge kernel")
+    check(launches == READ_LEN + 1,
+          f"the main path launched {launches} merge passes, not {READ_LEN + 1} (radix 1)")
     check(idx.n == n_bases + N_READS, "BWT length")
     check(counts.shape == (N_QUERIES,) and counts.min() >= 1,
           "every query k-mer occurs in the reads")
@@ -481,6 +510,7 @@ def phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt):
     from rust_msbwt_tpu_torch.ops.rle import decode_symbols_device
     from rust_msbwt_tpu_torch.utils.native import sort_rows_native
     from rust_msbwt_tpu_torch.utils.npy import load_bwt_bytes
+    from rust_msbwt_tpu_torch.utils.profiling import timed
 
     last = slice(N_READS - BATCH, N_READS)
     # --- the load-and-extend path: counts reset just before, read after ---
@@ -514,27 +544,23 @@ def phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt):
     n_strings = N_READS - BATCH
     parts = {}
 
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        parts[name] = time.perf_counter() - t0
+    def part(name, fn):
+        parts[name], res = timed(fn)
         return res
 
-    rle = timed("npy_read", lambda: load_bwt_bytes(ckpt))
-    base = timed("device_decode", lambda: decode_symbols_device(rle, device=dev))
-    bidx, bpacked = timed("index", lambda: bcr.index_from_symbols(base))
-    rl = timed("read_lengths", lambda: bcr.read_lengths_from_bwt(bidx, n_strings, bpacked))
+    rle = part("npy_read", lambda: load_bwt_bytes(ckpt))
+    base = part("device_decode", lambda: decode_symbols_device(rle, device=dev))
+    bidx, bpacked = part("index", lambda: bcr.index_from_symbols(base))
+    rl = part("read_lengths", lambda: bcr.read_lengths_from_bwt(bidx, n_strings, bpacked))
     check(rl.shape == (n_strings,) and int(rl.min()) == int(rl.max()) == READ_LEN,
           "recovered read lengths")
-    timed("encode_reads", lambda: bcr.encode_reads(list(reads[last])))
+    part("encode_reads", lambda: bcr.encode_reads(list(reads[last])))
     order = sort_rows_native(reads[last])
-    tp = timed("terminator_positions", lambda: bcr.terminator_positions(
+    tp = part("terminator_positions", lambda: bcr.terminator_positions(
         bidx, reads[last][order], lengths[last][order], READ_LEN + 1, bpacked))
     check(tp.shape == (BATCH,) and bool((tp[1:] >= tp[:-1]).all()),
           "terminator ranks of sorted reads are sorted")
-    ext = timed("extend_build", lambda: bcr.build_msbwt_with_index(
+    ext = part("extend_build", lambda: bcr.build_msbwt_with_index(
         reads[last], lengths[last], True, base, n_strings, READ_LEN + 1,
         device=dev, base_index=bpacked))
     check(torch.equal(ext[0].bwt[: ext[0].n], idx.bwt[: idx.n]),
@@ -593,13 +619,7 @@ def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8,
         count_kmers_runs,
     )
     from rust_msbwt_tpu_torch.utils.npy import save_bwt_bytes
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
+    from rust_msbwt_tpu_torch.utils.profiling import timed
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -646,15 +666,18 @@ def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8,
     bwt = RleBWT(device=dev)
     bwt.load_numpy_file(npy)
     load_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     got = bwt.count_kmers(kmers)
     first_s = time.perf_counter() - t0
     launches = merge_insert.launches
+    above = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
     tier_ok = bwt._pair_index is not None and bwt._cache_k == 9 and bwt._run_index is None
     log(f"[tiers] RleBWT.load_numpy_file {load_s:.3f} s (npy read + the host pass over "
         f"the RLE bytes); first count_kmers {first_s:.3f} s (device decode, index, pair "
         f"index, 6^9 cache, 1M counts); tier pair + 6^{bwt._cache_k}; merge kernel "
-        f"launches {launches}")
+        f"launches {launches}; its peak {above / 2**30:.3f} GiB above what stays "
+        "resident (the headroom at 505M)")
     check(tier_ok, "RleBWT did not pick pair + 6^9 at 505M")
     check(launches >= 1, "RleBWT's load launched no merge kernel")
     check(np.array_equal(got, counts), "RleBWT counts != phase 6 counts")
@@ -871,6 +894,217 @@ def phase_gloo_ranks(torch, np, dev, reads, lengths, d):
     return wall
 
 
+@contextlib.contextmanager
+def radix_env(radix):
+    """``MSBWT_TPU_RADIX`` set to ``radix`` inside the block (None: unset,
+    the automatic choice), restored after."""
+    old = os.environ.pop("MSBWT_TPU_RADIX", None)
+    if radix is not None:
+        os.environ["MSBWT_TPU_RADIX"] = str(radix)
+    try:
+        yield
+    finally:
+        os.environ.pop("MSBWT_TPU_RADIX", None)
+        if old is not None:
+            os.environ["MSBWT_TPU_RADIX"] = old
+
+
+def phase_long(torch, np, dev):
+    """Phase 12a-c: 500k x 1,000 bp reads (500.5M symbols) built at radix 1
+    and at radix 2 (counts reset before each): equal BWTs and tables, 1,001
+    and 501 passes; entry points and device loops timed in turns; the last
+    full-size radix-2 pass through the kernel == the plain pass; a 20k-read
+    radix-2 build through the plain pass == the kernel's; a 400k + 100k
+    load-and-extend at the automatic radix == the one-shot BWT."""
+    from statistics import median
+
+    from rust_msbwt_tpu_torch.models.dynamic import DynamicBWT
+    from rust_msbwt_tpu_torch.ops import bcr
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert, merge_insert_slots
+    from rust_msbwt_tpu_torch.ops.rle import encode_symbols
+    from rust_msbwt_tpu_torch.utils.profiling import build_roofline, timed
+
+    reads, lengths = genome_reads(np, LONG_READS, LONG_LEN, 0x10C6)
+    n = LONG_READS * (LONG_LEN + 1)
+    out, builds = {}, {1: [], 2: []}
+    for radix in (1, 2):
+        with radix_env(radix):
+            # --- the long-read path at this radix: counts reset just before ---
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            merge_insert.launches = 0
+            s, (idx, packed) = timed(lambda: bcr.build_msbwt_with_index(reads, lengths,
+                                                                         device=dev))
+            out[radix] = (idx, packed, merge_insert.launches, torch.cuda.max_memory_allocated())
+            # --- end of the long-read path ---
+            builds[radix].append(s)
+    (i1, p1, l1, peak1), (i2, p2, l2, peak2) = out[1], out[2]
+    check(i1.n == i2.n == n, "long-read BWT length")
+    check(torch.equal(i1.bwt, i2.bwt) and torch.equal(p1.table, p2.table),
+          "500.5M long-read build: radix 2 != radix 1")
+    check((l1, l2) == (LONG_LEN + 1, LONG_LEN // 2 + 1),
+          f"long-read passes {l1} / {l2}, not {LONG_LEN + 1} / {LONG_LEN // 2 + 1}")
+    del i2, p2, out
+    for radix in (2, 1):  # one more entry-point build each, the other order
+        with radix_env(radix):
+            builds[radix].append(timed(lambda: bcr.build_msbwt_with_index(
+                reads, lengths, device=dev))[0])
+    p = bcr._prepare_build(reads, lengths, True)
+    loops = {1: [], 2: []}
+    for rnd in range(3):  # device loops in turns, the order flipped each round
+        for radix in ((1, 2) if rnd % 2 == 0 else (2, 1)):
+            with radix_env(radix):
+                loops[radix].append(timed(lambda: bcr._build_device(p, dev, merge_insert))[0])
+    # the last radix-2 pass at full size (2N unsorted slots into the buffer
+    # of n - 2N symbols): the kernel == the plain pass on those card tensors
+    seen, calls = [], [0]
+
+    def keep_last(old, q, v, active, **kw):
+        if calls[0] == LONG_LEN // 2:  # pass 0 is stage 1, pass 500 the last pair
+            seen.append(tuple(t.clone() for t in (old, q, v, active)))
+        calls[0] += 1
+        return merge_insert(old, q, v, active, **kw)
+
+    with radix_env(2):
+        bcr._build_device(p, dev, keep_last)
+    del p
+    check(calls[0] == LONG_LEN // 2 + 1 and len(seen) == 1, f"radix-2 run of {calls[0]} passes")
+    (old, q, v, act), = seen
+    got, want = merge_insert(old, q, v, act), merge_insert_slots(old, q, v, act)
+    check(q.numel() == 2 * LONG_READS and int(want[2]) == 2 * LONG_READS,
+          f"last radix-2 pass: {q.numel()} slots, {int(want[2])} inserted")
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+          and int(got[2]) == int(want[2]),
+          "last 500.5M radix-2 pass: kernel != plain pass")
+    log(f"[long] the last radix-2 pass ({old.numel()} buffer, {q.numel()} unsorted slots): "
+        "the kernel == the plain pass (buffer, table, m)")
+    del seen, old, q, v, act, got, want
+    res = {}
+    for radix, peak in ((1, peak1), (2, peak2)):
+        loop = median(loops[radix])
+        bound = build_roofline(n, LONG_LEN, loop, n_reads=LONG_READS, radix=radix)
+        res[radix] = {"build_s": median(builds[radix]), "loop_s": loop, "peak": peak}
+        log(f"[long] radix {radix}: build_msbwt_with_index "
+            + " / ".join(f"{t:.3f}" for t in builds[radix])
+            + f" s (median {res[radix]['build_s']:.3f}); device loop "
+            + " / ".join(f"{t:.3f}" for t in loops[radix])
+            + f" s (median {loop:.3f}; full-buffer pass bound {bound.seconds_at_light:.3f} s "
+            f"for {bound.bytes_touched} B); peak device memory {peak / 2**30:.2f} GiB; "
+            f"merge kernel launches {(l1, l2)[radix - 1]}")
+    log(f"[long] {LONG_READS} x {LONG_LEN} bp ({n} symbols): BWT and table equal at radix "
+        f"1 and 2; device loop radix 1 / radix 2 = "
+        f"{res[1]['loop_s'] / res[2]['loop_s']:.3f}, per-round ratios "
+        + " / ".join(f"{a / b:.3f}" for a, b in zip(loops[1], loops[2])))
+
+    # (b) a small radix-2 build through the plain pass on the card
+    small = slice(0, LONG_SMALL)
+    with radix_env(2):
+        got = {name: bcr.build_msbwt_with_index(reads[small], lengths[small], device=dev,
+                                                merge=merge)
+               for name, merge in (("kernel", merge_insert), ("plain", merge_insert_slots))}
+    check(torch.equal(got["kernel"][0].bwt, got["plain"][0].bwt)
+          and torch.equal(got["kernel"][1].table, got["plain"][1].table),
+          "20k long reads at radix 2: kernel != plain pass")
+    log(f"[long] {LONG_SMALL} x {LONG_LEN} bp at radix 2: the plain pass on the card == "
+        "the kernel (BWT and table)")
+    del got
+
+    # (c) load-and-extend at the automatic radix
+    base, _ = bcr.build_msbwt_with_index(reads[:LONG_BASE], lengths[:LONG_BASE], device=dev)
+    rle = encode_symbols(base.bwt[: base.n].cpu().numpy())
+    del base
+    with radix_env(None):
+        # --- the long-read extend: counts reset just before, read just after ---
+        torch.cuda.synchronize()
+        merge_insert.launches = 0
+        t0 = time.perf_counter()
+        dyn = DynamicBWT(device=dev)
+        dyn.load_vector(rle)
+        dyn.insert_strings(list(reads[LONG_BASE:]), True)
+        ext = dyn.device_index
+        torch.cuda.synchronize()
+        ext_s = time.perf_counter() - t0
+        launches_ext = merge_insert.launches
+        # --- end of the long-read extend ---
+    radix = bcr.build_radix()
+    check(ext.n == n and torch.equal(ext.bwt[: ext.n], i1.bwt[: i1.n]),
+          "long-read load + extend != the one-shot BWT")
+    log(f"[long] load {LONG_BASE} reads' BWT from RLE bytes + extend by "
+        f"{LONG_READS - LONG_BASE} reads (auto radix {radix}): {ext_s:.3f} s, merge kernel "
+        f"launches {launches_ext}; equal to the one-shot BWT")
+    return l1, l2, launches_ext, res
+
+
+def phase_budget(torch, np, dev):
+    """Phase 12e: the query-tier budget at 1.515G symbols (15M x 100 bp):
+    build (counts reset just before), RLE bytes in memory, ``RleBWT`` with
+    its default budget (the card's) must pick pair + 6^9 and with
+    ``MSBWT_TPU_DEVICE_BUDGET_GB=12`` the run tier; 1M counts of each ==
+    the packed tier's; each tier's peak above what stays resident."""
+    from rust_msbwt_tpu_torch.models.rle_bwt import RleBWT
+    from rust_msbwt_tpu_torch.ops.bcr import build_msbwt_with_index
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+    from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
+    from rust_msbwt_tpu_torch.ops.rle import encode_symbols
+    from rust_msbwt_tpu_torch.utils.profiling import timed
+
+    reads, lengths = genome_reads(np, BIG_READS, READ_LEN, 0x1515)
+    kmers = draw_kmers(np, np.random.default_rng(0x1516), reads)
+    n = BIG_READS * (READ_LEN + 1)
+    # --- the 1.515G path: counts reset just before, read after the first batch ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge_insert.launches = 0
+    build_s, (idx, _) = timed(lambda: build_msbwt_with_index(reads, lengths, device=dev))
+    build_peak = torch.cuda.max_memory_allocated()
+    build_launches = merge_insert.launches
+    del reads
+    rle = encode_symbols(idx.bwt[: idx.n].cpu().numpy())
+    del idx
+    torch.cuda.empty_cache()
+    log(f"[budget] {BIG_READS} x {READ_LEN} bp ({n} symbols): build {build_s:.3f} s, peak "
+        f"device memory {build_peak / 2**30:.2f} GiB, merge kernel launches {build_launches}; "
+        f"{rle.size} RLE bytes")
+    check(build_launches == READ_LEN + 1, f"1.515G build: {build_launches} passes")
+
+    tiers = {}
+    for name, budget_env in (("card budget", None), ("MSBWT_TPU_DEVICE_BUDGET_GB=12", "12")):
+        if budget_env is not None:
+            os.environ["MSBWT_TPU_DEVICE_BUDGET_GB"] = budget_env
+        try:
+            bwt = RleBWT(device=dev)
+            bwt.load_vector(rle)
+            budget = bwt.device_budget_bytes()
+            torch.cuda.reset_peak_memory_stats()
+            first_s, got = timed(lambda: bwt.count_kmers(kmers))
+            above = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+            resident = torch.cuda.memory_allocated()
+            warm_s, got2 = timed(lambda: bwt.count_kmers(kmers))
+        finally:
+            os.environ.pop("MSBWT_TPU_DEVICE_BUDGET_GB", None)
+        tier = ("run" if bwt._run_index is not None
+                else "pair" if bwt._pair_index is not None else "packed")
+        if budget_env is None:
+            launches = merge_insert.launches
+            # --- end of the 1.515G path ---
+            want = count_kmers_packed(bwt.packed_index, kmers)
+            check(tier == "pair" and bwt._cache_k == 9,
+                  f"RleBWT at 1.515G with the card's budget picked {tier} + 6^{bwt._cache_k}")
+        else:
+            check(tier == "run", f"RleBWT at 1.515G under a 12 GB budget picked {tier}")
+        check(np.array_equal(got, want) and np.array_equal(got2, want),
+              f"1.515G counts through {tier} != the packed tier's")
+        tiers[name] = {"tier": tier, "peak_above": above, "resident": resident}
+        log(f"[budget] {name}: budget {budget / 1e9:.3f} GB against 9 B x n = "
+            f"{9 * n / 1e9:.3f} GB -> {tier} + 6^{bwt._cache_k}; first count_kmers "
+            f"{first_s:.3f} s, warm {warm_s:.4f} s ({N_QUERIES / warm_s:.0f} q/s); resident "
+            f"{resident / 2**30:.2f} GiB, peak {above / 2**30:.3f} GiB above it; counts == "
+            "the packed tier's")
+        del bwt
+        torch.cuda.empty_cache()
+    return launches, tiers
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -891,6 +1125,7 @@ def main(argv=None) -> int:
         import numpy as np
 
         from rust_msbwt_tpu_torch import _kernels
+        from rust_msbwt_tpu_torch.utils.profiling import session_health
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -906,6 +1141,7 @@ def main(argv=None) -> int:
     _kernels.load()
     log(f"[build] kernels built in {time.perf_counter() - t0:.2f} s")
     log(ptxas.strip() or "(library up to date: not rebuilt)")
+    log(f"[health] {json.dumps(session_health())}")
 
     max_err, times = phase_kernel(torch, dev, args.parent)
     phase_golden("cuda")
@@ -932,6 +1168,11 @@ def main(argv=None) -> int:
         launches_dist, _ = phase_distributed_cli(np, idx, reads, d)
     with tempfile.TemporaryDirectory() as d:
         phase_gloo_ranks(torch, np, dev, reads, lengths, d)
+    del reads, lengths, kmers, counts, idx
+    torch.cuda.empty_cache()
+    launches_r1, launches_r2, launches_long_ext, _ = phase_long(torch, np, dev)
+    torch.cuda.empty_cache()
+    launches_budget, _ = phase_budget(torch, np, dev)
 
     print(json.dumps({"kernels": [{
         "name": "merge_insert",
@@ -944,6 +1185,10 @@ def main(argv=None) -> int:
         "launches_query": launches_query,
         "launches_merge_parts": launches_parts,
         "launches_distributed": launches_dist,
+        "launches_long_radix1": launches_r1,
+        "launches_long_radix2": launches_r2,
+        "launches_long_extend": launches_long_ext,
+        "launches_budget": launches_budget,
         "max_abs_err": max_err,
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],

@@ -2,7 +2,7 @@
 """Time breakdown of the port's 505M-symbol build and 1M-query batch on one
 NVIDIA card.
 
-    python3 profile_build.py [--reps 4] [--top 25] [--no-profile]
+    python3 profile_build.py [--reps 4] [--top 25] [--no-profile] [--sweep-only]
 
 Uses ``chip_smoke.py``'s main-path read set (5M x 100 bp reads from a
 random 4.6 Mbase genome, seed 0xEC011; 1M 21-mer queries). The CUDA context
@@ -35,10 +35,19 @@ timed. Then:
    groups, each built on the card, merged at 505M symbols), from the state
    ``_doubling_init`` leaves: once unprofiled, once profiled, with the share
    of the round's device time spent in sort kernels.
+4. Unless ``--no-profile`` (alone with ``--sweep-only``): the radix sweep.
+   Read sets of ~500M symbols at L = 250 (2M reads), 500 (1M) and 1,000
+   (500k) from the same genome; on each, the device stage loop at radix 1
+   and radix 2 (``MSBWT_TPU_RADIX``) in turns for three rounds, the order
+   flipped each round, and the median of the per-round ratios; then one
+   profiled loop per radix (device time, idle share), with radix 2's
+   corrections (argsort + sort, searchsorted) timed apart in the loop, and
+   the argsort, the sort and the searchsorted apart in their functions
+   alone at the same N.
 
-Host timers wrap ``torch.cuda.synchronize()``. The card's name and power
-limit are printed first; the last line is one JSON object holding every
-number printed. Exits 2 without a CUDA card.
+Host timers wrap ``torch.cuda.synchronize()`` (``utils.profiling.timed``).
+The card's name and power limit are printed first; the last line is one
+JSON object holding every number printed. Exits 2 without a CUDA card.
 """
 
 from __future__ import annotations
@@ -64,25 +73,24 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def wall_time(torch, fn) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
+def wall_time(fn) -> float:
+    """Wall seconds of one fenced call (``utils.profiling.timed``)."""
+    from rust_msbwt_tpu_torch.utils.profiling import timed
+
+    return timed(fn)[0]
 
 
-def profiled(torch, fn, label: str, top: int, share_of: str | None = None) -> dict:
+def profiled(torch, fn, label: str, top: int, groups: dict | None = None) -> dict:
     """Run ``fn()`` once unprofiled (its wall time: the profiler's CPU
     tracing slows every launch) and once under ``torch.profiler`` (its
     summed device time, device events and top events); print and return
-    them. ``share_of``: also the share of the device time in events whose
-    name holds that word (any case)."""
+    them. ``groups``: ``{label: predicate}`` on lower-case event names;
+    also the device time and share of each group."""
     from torch.profiler import ProfilerActivity, profile
 
-    wall = wall_time(torch, fn)
+    wall = wall_time(fn)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prof_wall = wall_time(torch, fn)
+        prof_wall = wall_time(fn)
     # device-side events only (kernels, copies, fills): the CPU ops that
     # launched them carry the same time again
     evts = [e for e in prof.key_averages()
@@ -102,10 +110,12 @@ def profiled(torch, fn, label: str, top: int, share_of: str | None = None) -> di
         log(f"[{label}] the profiler recorded no device time")
     out = {"wall_s": wall, "profiled_wall_s": prof_wall, "device_s": dev_s,
            "device_events": n_events, "top": rows}
-    if share_of:
-        part = sum(_device_us(e) for e in evts if share_of in e.key.lower()) * 1e-6
-        out[f"{share_of}_share"] = part / dev_s if dev_s else None
-        log(f"[{label}] '{share_of}' kernels: {part:.4f} s, "
+    for name, pred in (groups or {}).items():
+        part = sum(_device_us(e) for e in evts if pred(e.key.lower())) * 1e-6
+        n_part = sum(e.count for e in evts if pred(e.key.lower()))
+        out[f"{name}_s"] = part
+        out[f"{name}_share"] = part / dev_s if dev_s else None
+        log(f"[{label}] {name} kernels: {part:.4f} s in {n_part} events, "
             f"{100 * part / dev_s if dev_s else 0:.1f}% of the device time")
     return out
 
@@ -125,14 +135,101 @@ def profile_merge_round(torch, np, dev, reads, lengths, top: int) -> dict:
     syms = torch.cat(parts)
     sizes = [int(p.numel()) for p in parts]
     del parts
-    init_s = wall_time(torch, lambda: _doubling_init(syms, sizes, False))
+    init_s = wall_time(lambda: _doubling_init(syms, sizes, False))
     rank, succ = _doubling_init(syms, sizes, False)
     out = profiled(torch, lambda: _doubling_round(rank, succ, False), "doubling round", top,
-                   share_of="sort")
+                   groups={"sort": lambda k: "sort" in k})
     out["init_s"] = init_s
     log(f"[doubling round] {syms.numel()} symbols in {N_PARTS} parts: init (psi sort + "
         f"first ranks) {init_s:.4f} s; one round {out['wall_s']:.4f} s")
     return out
+
+
+SWEEP = ((250, 2_000_000), (500, 1_000_000), (1_000, 500_000))  # ~500M symbols each
+SWEEP_ROUNDS = 3
+# radix 2's corrections among the device kernels: the argsort of the column
+# slots and the sort of the next column's (torch.sort), and the searchsorted
+CORRECTIONS = {"argsort + sort": lambda k: "sort" in k and "searchsorted" not in k,
+               "searchsorted": lambda k: "searchsorted" in k}
+
+
+def correction_split(torch, dev, N: int, n: int, reps: int = 20) -> dict:
+    """Device ms a pair of radix 2's corrections apart, at N reads over n
+    symbols: ``pair_order`` (the argsort of the column's slots and its
+    inverse) and ``pair_slots`` (the one-hot scan, the sort of the next
+    column's slots, the searchsorted), each profiled alone over ``reps``
+    calls on distinct random slots; sort kernels in the first are the
+    argsort's, in the second the sort's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rust_msbwt_tpu_torch.ops.bcr import pair_order, pair_slots
+
+    ar = torch.arange(N, dtype=torch.int32, device=dev)
+    q1 = (torch.sort(torch.randint(0, n - N, (N,), device=dev)).values.to(torch.int32)
+          + ar)[torch.randperm(N, device=dev)]
+    v1 = torch.randint(0, 6, (N,), dtype=torch.uint8, device=dev)
+    act = torch.ones(N, dtype=torch.bool, device=dev)
+    order1, inv1, old_pos = pair_order(q1, act, n)
+    calls = {"pair_order": lambda: pair_order(q1, act, n),
+             "pair_slots": lambda: pair_slots(q1, v1, act, act, order1, inv1, old_pos)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            k = e.key.lower()
+            part = ("argsort" if name == "pair_order" and "sort" in k else
+                    "searchsorted" if "searchsorted" in k else
+                    "sort" if "sort" in k else name + " other")
+            out[part] = out.get(part, 0.0) + _device_us(e) * 1e-3 / reps
+    return out
+
+
+def radix_sweep(torch, np, dev, top: int) -> list:
+    """Step 4: the device stage loop at radix 1 and radix 2 on read sets of
+    ~500M symbols at L = 250, 500 and 1,000 from the flagship genome, one
+    host prep each. ``SWEEP_ROUNDS`` rounds in turns, the order flipped each
+    round; the median of the per-round ratios (radix 1 / radix 2), then one
+    profiled loop per radix (device time, idle share, the corrections'
+    kernels timed apart) and ``correction_split``."""
+    from statistics import median
+
+    from chip_smoke import genome_reads, radix_env
+    from rust_msbwt_tpu_torch.ops.bcr import _build_device, _prepare_build
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+
+    rows = []
+    for L, n_reads in SWEEP:
+        reads, lengths = genome_reads(np, n_reads, L, 0x5EED + L)
+        p = _prepare_build(reads, lengths, True)
+        del reads, lengths
+        loops = {1: [], 2: []}
+        for rnd in range(SWEEP_ROUNDS):
+            for radix in ((1, 2) if rnd % 2 == 0 else (2, 1)):
+                with radix_env(radix):
+                    loops[radix].append(wall_time(lambda: _build_device(p, dev, merge_insert)))
+        ratios = [a / b for a, b in zip(loops[1], loops[2])]
+        row = {"L": L, "reads": n_reads, "symbols": p["n_cap"], "loop_s": loops,
+               "ratios": ratios, "median_ratio": median(ratios)}
+        for radix in (1, 2):
+            with radix_env(radix):
+                row[f"profile_radix{radix}"] = profiled(
+                    torch, lambda: _build_device(p, dev, merge_insert),
+                    f"L={L} radix {radix}", top, CORRECTIONS if radix == 2 else None)
+        row["correction_ms_a_pair"] = correction_split(torch, dev, n_reads, p["n_cap"])
+        del p
+        log(f"[sweep] L={L} corrections alone, device ms a pair: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row["correction_ms_a_pair"].items()))
+        log(f"[sweep] L={L} ({n_reads} reads, {row['symbols']} symbols): device loop radix 1 "
+            + " / ".join(f"{t:.4f}" for t in loops[1]) + " s, radix 2 "
+            + " / ".join(f"{t:.4f}" for t in loops[2]) + " s; per-round ratios "
+            + " / ".join(f"{r:.3f}" for r in ratios)
+            + f", median {row['median_ratio']:.3f} (> 1: radix 2 faster)")
+        rows.append(row)
+    return rows
 
 
 def main(argv=None) -> int:
@@ -143,6 +240,8 @@ def main(argv=None) -> int:
                     help="device events listed per profile (default 25)")
     ap.add_argument("--no-profile", action="store_true",
                     help="skip the torch.profiler runs")
+    ap.add_argument("--sweep-only", action="store_true",
+                    help="run only step 4, the radix sweep")
     args = ap.parse_args(argv)
     if args.reps < 1:
         ap.error("--reps must be at least 1")
@@ -178,6 +277,9 @@ def main(argv=None) -> int:
     _kernels.build()
     _kernels.load()
     log(f"[setup] kernel library built and loaded in {time.perf_counter() - t0:.2f} s")
+    if args.sweep_only:
+        print(json.dumps({"card": smi, "radix_sweep": radix_sweep(torch, np, dev, args.top)}))
+        return 0
     t0 = time.perf_counter()
     reads, lengths, kmers = ecoli_config(np)
     log(f"[setup] {N_READS} x {READ_LEN} bp reads made in {time.perf_counter() - t0:.2f} s")
@@ -223,7 +325,7 @@ def main(argv=None) -> int:
         result["pair_index"] = profiled(torch, lambda: build_pair_index(idx),
                                         "pair index build", args.top)
         pair = build_pair_index(idx)
-        cache9_s = wall_time(torch, lambda: build_kmer_cache(idx.bwt, idx.occ, idx.starts,
+        cache9_s = wall_time(lambda: build_kmer_cache(idx.bwt, idx.occ, idx.starts,
                                                              idx.n, 9))
         cache9 = build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 9)
         log(f"[setup] 6^9 cache {cache9_s:.4f} s")
@@ -254,7 +356,7 @@ def main(argv=None) -> int:
                                          bpacked, READ_LEN + 1),
             "extend loop", args.top)
         del p
-        entry_s = wall_time(torch, lambda: build_msbwt_with_index(
+        entry_s = wall_time(lambda: build_msbwt_with_index(
             reads[last], lengths[last], True, base.bwt[: base.n], n0_reads,
             READ_LEN + 1, device=dev, base_index=bpacked))
         log(f"[terminator walk] {n_steps} LF steps: "
@@ -267,6 +369,8 @@ def main(argv=None) -> int:
         result.update(terminator_walk=walk, extend_loop=loop, extend_build_s=entry_s)
         del base, bpacked
         result["merge_round"] = profile_merge_round(torch, np, dev, reads, lengths, args.top)
+        del reads, lengths, kmers
+        result["radix_sweep"] = radix_sweep(torch, np, dev, args.top)
     print(json.dumps(result))
     return 0
 

@@ -28,25 +28,36 @@ needs the base's longest rotation, which ``read_lengths_from_bwt``
 recovers by LF walk when the caller does not know it.
 
 Capacity buckets. Early stages run on a nearly empty buffer, so the stage
-loop runs in buckets whose capacity grows by ``GROWTH`` as the buffer fills
-(``bucket_schedule``). Every bucket works on a prefix VIEW of full-size
-buffers allocated once, so growing a bucket copies nothing: positions past
-a bucket's capacity still hold PAD from the initial fill.
+loop runs in buckets whose capacity grows by ``MSBWT_TPU_BUCKET_GROWTH``
+(default 1.3) as the buffer fills (``bucket_schedule``). Every bucket works
+on a prefix VIEW of full-size buffers allocated once, so growing a bucket
+copies nothing: positions past a bucket's capacity still hold PAD from the
+initial fill.
 
-Not ported: the radix-2 stage (``_pallas_stage_step2``), which the JAX
-package's ``build_radix`` picks only at a mean new-read length >= 1000 (so
-never for 100 bp reads, extend included: the base is not counted); nor the
-XLA scatter engine ``bcr_insert_core`` — the port has one engine.
+Radix 2. ``build_radix`` picks how many columns one merge pass consumes:
+radix 2 (``_stage_step2``) ranks two columns from one table and inserts
+both through one pass of 2N slots, which halves the passes over the buffer
+at the cost of N-sized sorts a pair. It can pay only where N is small next
+to the buffer, i.e. for long reads, and on the H100 it did not reliably
+at any length measured, so it runs only where ``MSBWT_TPU_RADIX=2`` forces
+it.
+
+The JAX package's XLA scatter engine ``bcr_insert_core`` has no counterpart
+of its own: the build functions' ``merge=`` takes the plain pass
+``ops.merge_insert.merge_insert_slots``, which gives the same bytes on any
+device.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from rust_msbwt_tpu_torch.ops.alphabet import VC_LEN
 from rust_msbwt_tpu_torch.ops.merge_insert import ROW, merge_insert
-from rust_msbwt_tpu_torch.ops.packed_rank import PackedOccIndex, lf_step
+from rust_msbwt_tpu_torch.ops.packed_rank import PackedOccIndex, lf_step, rank_packed
 from rust_msbwt_tpu_torch.ops.rank import (
     BIN,
     PAD,
@@ -55,7 +66,7 @@ from rust_msbwt_tpu_torch.ops.rank import (
 )
 
 _I32 = torch.int32
-GROWTH = 1.3  # capacity growth between stage buckets (JAX package default)
+_I32_MAX = torch.iinfo(torch.int32).max  # radix-2 sort sentinel: above every slot
 LF_BLOCK = 32  # read-length walk: LF steps between two host checks
 
 
@@ -311,12 +322,29 @@ def _bump_counts(counts, v, active):
     )
 
 
-def bucket_schedule(n0: int, N: int, L: int, n_cap: int,
-                    chunk: int) -> list[tuple[int, int, int]]:
+def _bucket_growth() -> float:
+    """Capacity growth factor between stage buckets: ``MSBWT_TPU_BUCKET_GROWTH``,
+    default 1.3 (the JAX package's, measured there), clamped to [1.05, 4].
+    Each pass streams its bucket's whole capacity, so the mean capacity over
+    a bucket is r ln(r) / (r - 1) of the symbols held: 1.14x at 1.3, 1.39x
+    at 2; a smaller factor makes more, shorter buckets.
+
+    >>> _bucket_growth()
+    1.3
+    """
+    try:
+        g = float(os.environ.get("MSBWT_TPU_BUCKET_GROWTH", "1.3"))
+    except ValueError:
+        g = 1.3
+    return min(max(g, 1.05), 4.0)
+
+
+def bucket_schedule(n0: int, N: int, L: int, n_cap: int, chunk: int,
+                    growth: float | None = None) -> list[tuple[int, int, int]]:
     """Stage buckets ``(ja, jb, cap)``: run stages [ja, jb) at capacity
     ``cap`` (chunk-aligned, >= n0 + (jb-1)*N — stage j ends with at most
-    n0 + j*N symbols), growing by ``GROWTH``. The last bucket runs at
-    ``aligned(n_cap)``.
+    n0 + j*N symbols), growing by ``growth`` (``_bucket_growth()`` when
+    None). The last bucket runs at ``aligned(n_cap)``.
 
     >>> sched = bucket_schedule(0, 10, 20, 220, 16)
     >>> sched[0][0], sched[-1][1]  # covers stages [2, L+2) contiguously
@@ -327,22 +355,61 @@ def bucket_schedule(n0: int, N: int, L: int, n_cap: int,
     def aligned(x):
         return -(-x // chunk) * chunk
 
+    if growth is None:
+        growth = _bucket_growth()
     full_cap = aligned(n_cap)
     buckets = []
     ja = 2
     while ja < L + 2:
         need = n0 + ja * N
-        cap = min(aligned(int(GROWTH * need)), full_cap)
+        cap = min(aligned(int(growth * need)), full_cap)
         if cap == full_cap:
             # the full-capacity bucket holds everything by n_cap's definition
             jb = L + 2
         else:
-            # cap >= GROWTH*need >= n0 + ja*N, so even a single-stage bucket
+            # cap >= growth*need >= n0 + ja*N, so even a single-stage bucket
             # (jb = ja + 1) fits its last stage's output
             jb = max(min((cap - n0) // N + 1, L + 2), ja + 1)
         buckets.append((ja, jb, cap))
         ja = jb
     return buckets
+
+
+def pair_buckets(buckets: list[tuple[int, int, int]], L: int) -> list[tuple[int, int, int]]:
+    """The radix-2 schedule: every bucket but the last shrinks to an even
+    number of stages (never extends: a pair ends at stage jb - 1, which its
+    capacity holds); a bucket left with none goes, and its stages run in the
+    next, larger one. So pairs start on even stages and only the last,
+    full-capacity bucket may end on a single stage (L odd). The JAX package
+    keeps its one-stage buckets instead, one pass more each.
+
+    >>> pair_buckets([(2, 3, 32), (3, 4, 48), (4, 7, 64), (7, 12, 96)], 10)
+    [(2, 4, 48), (4, 6, 64), (6, 12, 96)]
+    """
+    out, a = [], buckets[0][0]
+    for _, b, cap in buckets:
+        if b < L + 2:
+            b = a + (b - a) // 2 * 2
+            if b == a:
+                continue
+        out.append((a, b, cap))
+        a = b
+    return out
+
+
+def build_radix() -> int:
+    """Columns one merge pass consumes (1 or 2): 2 only where
+    ``MSBWT_TPU_RADIX=2`` forces it. There is no automatic radix 2: the
+    ``profile_build.py`` radix sweep on the H100 (PERF.md) found no read
+    length (250, 500, 1,000 bp) where it was faster in every run, since a
+    pair costs more host launches than the pass it saves and the stage loop
+    is host-bound at long reads. (The JAX package picks 2 by itself from
+    999 bp on.)
+
+    >>> build_radix()
+    1
+    """
+    return 2 if os.environ.get("MSBWT_TPU_RADIX") == "2" else 1
 
 
 def index_from_symbols(sym: torch.Tensor, *, merge=merge_insert
@@ -398,20 +465,108 @@ def _stage1_slots(p: dict, cols, lengths, base, base_index, base_rot_max, merge)
     return base_pos + ar
 
 
+def _stage_step(j, tab, nst, cols, lengths, P, counts, prev_v):
+    """One BCR column j: each read's slot ``q = C[f] + rank(f, P)`` from
+    the current table ``tab`` (``nst`` strings in all). Returns the pass's
+    ``(q, v, active)`` and the carry ``(P, counts, prev_v)`` after it."""
+    active = j <= lengths + 1
+    v = cols[j]
+    q = lf_step(tab, _cvec(counts, nst), prev_v.long(), P)
+    return (q, v, active, torch.where(active, q, P), _bump_counts(counts, v, active),
+            torch.where(active, v, prev_v))
+
+
+def pair_order(q1: torch.Tensor, active1: torch.Tensor, cap: int):
+    """Column j's slots ``q1`` (int32, distinct where ``active1``) in sorted
+    order: ``(order1, inv1, old_pos)``. ``inv1[i]`` is the number of active
+    slots below read i's (a stable argsort puts the inactive reads, masked
+    to the int32 maximum, after every slot below 2^31 - 1), so
+    ``old_pos = q1 - inv1``, clamped to [0, cap], is the slot's position in
+    the buffer before column j's inserts."""
+    order1 = torch.argsort(torch.where(active1, q1, _I32_MAX), stable=True)
+    inv1 = torch.empty_like(q1)
+    inv1[order1] = torch.arange(q1.shape[0], dtype=_I32, device=q1.device)
+    return order1, inv1, (q1 - inv1).clamp_(0, cap)
+
+
+def pair_slots(q1, v1, active1, active2, order1, inv1, base2):
+    """The radix-2 slot math of one column pair, given column j's slots
+    ``q1`` (in the buffer B1 = B0 + column j's inserts), ``pair_order``'s
+    ``order1`` / ``inv1``, and ``base2 = cvec1[v1] + rank_B0(v1, old_pos)``
+    (the C array after column j's inserts). Returns int32 ``(f1, q2)``:
+
+    * ``q2 = base2 + inb``, column j+1's final slots, where ``inb[i]``
+      counts the active reads whose ``q1`` lies below read i's with the same
+      symbol ``v1``: ``rank_B1(v1, q1) = rank_B0(v1, old_pos) + inb``. It is
+      one 1-D scan of the ``[6, N]`` one-hot of ``v1`` in q1 order, read at
+      ``(v1, k)`` less the count of the rows before (a scan along the rows
+      of the ``[6, N]`` view runs one block a row, ~0.65 ms at N = 500k on
+      the H100);
+    * ``f1 = q1 + #{k: sort(q2)_k - k <= q1}``, column j's slots moved past
+      column j+1's (stable merge). Over the ``m2`` active slots
+      ``sort(q2)_k - k`` is non-decreasing; the tail past them is set to
+      the int32 maximum on the device (no host sync), so the array stays
+      sorted for any q1 < 2^31 - 1 and a binary search is exact.
+
+    Inactive reads get values that no pass reads."""
+    dev = q1.device
+    N = q1.shape[0]
+    ar = torch.arange(N, dtype=_I32, device=dev)
+    v_sorted = torch.where(active1, v1, VC_LEN)[order1]
+    onehot = torch.arange(VC_LEN, dtype=torch.uint8, device=dev)[:, None] == v_sorted
+    cs = torch.cumsum(onehot.view(-1), 0, dtype=_I32)  # row s after every row < s
+    before = torch.cat([cs.new_zeros(1), cs.view(VC_LEN, N)[:-1, -1]])
+    row = v_sorted.clamp(max=VC_LEN - 1).long()
+    inb_sorted = cs[row * N + ar] - before[row] - 1
+    q2 = base2 + inb_sorted[inv1.long()]
+    q2s = torch.sort(torch.where(active2, q2, _I32_MAX)).values
+    bk = torch.where(ar < active2.sum(), q2s - ar, _I32_MAX)
+    f1 = q1 + torch.searchsorted(bk, q1, right=True, out_int32=True)
+    return f1, q2
+
+
+def _stage_step2(j, tab, cap, nst, cols, lengths, P, counts, prev_v):
+    """Two BCR columns (j, j + 1) through one pass: the port of the JAX
+    package's ``_pallas_stage_step2``. Column j+1's rank over the buffer
+    after column j's inserts comes from the current table without that
+    buffer: ``rank_B1(s, q1) = rank_B0(s, q1 - c) + #{same-symbol inserts
+    below q1}`` (``pair_order``, ``pair_slots``). Reads inactive in column
+    j+1 (odd tails of ragged reads) insert only ``v1``. Returns the pass's
+    ``(q, v, active)`` over 2N slots and the carry after it; no host sync."""
+    active1 = j <= lengths + 1
+    active2 = j + 1 <= lengths + 1  # implies active1
+    v1, v2 = cols[j], cols[j + 1]
+    q1 = lf_step(tab, _cvec(counts, nst), prev_v.long(), P)
+    order1, inv1, old_pos = pair_order(q1, active1, cap)
+    counts1 = _bump_counts(counts, v1, active1)
+    v1l = v1.long()
+    base2 = _cvec(counts1, nst)[v1l] + rank_packed(tab, v1l, old_pos)
+    f1, q2 = pair_slots(q1, v1, active1, active2, order1, inv1, base2)
+    q = torch.cat([torch.where(active1, f1, 0), torch.where(active2, q2, 0)])
+    P = torch.where(active2, q2, torch.where(active1, f1, P))
+    prev_v = torch.where(active2, v2, torch.where(active1, v1, prev_v))
+    return (q, torch.cat([v1, v2]), torch.cat([active1, active2]), P,
+            _bump_counts(counts1, v2, active2), prev_v)
+
+
 def _build_device(p: dict, device, merge, base=None, base_index=None,
                   base_rot_max=None):
     """Run stage 1 and the bucketed stage loop on ``device``, onto ``base``
     (uint8 tensor of ``p["n0"]`` symbols; ``base_index`` its packed index
-    when the caller holds it). Returns the final buffer (uint8
-    [aligned n_cap], PAD past n_cap), its packed table (int32
-    [aligned n_cap / 128 + 1, 32]) and the symbol counts."""
+    when the caller holds it), one column a pass or, where ``build_radix``
+    picks 2, two. Returns the final buffer (uint8 [aligned n_cap], PAD past
+    n_cap), its packed table (int32 [aligned n_cap / 128 + 1, 32]) and the
+    symbol counts."""
     N, L, n0, n_cap = p["N"], p["L"], p["n0"], p["n_cap"]
     cols = torch.from_numpy(p["cols"]).to(device)
     lengths = torch.from_numpy(p["lengths"]).to(device)
     # the base's slots first: its index (when derived here) is freed before
     # the build's buffers are allocated
     q1 = _stage1_slots(p, cols, lengths, base, base_index, base_rot_max, merge)
+    radix = build_radix()
     buckets = bucket_schedule(n0, N, L, n_cap, BIN)
+    if radix == 2:
+        buckets = pair_buckets(buckets, L)
     full_cap = buckets[-1][2]
     bufs = [torch.full((full_cap,), PAD, dtype=torch.uint8, device=device)
             for _ in range(2)]
@@ -436,19 +591,21 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
     n_valid = m + n0
     P = q1
     counts = _bump_counts(counts, prev_v, active)
-    n_strings_total = p["n_strings_total"]
+    nst = p["n_strings_total"]
     for ja, jb, cap in buckets:
         tab = table[: cap // BIN + 1]
-        for j in range(ja, jb):
-            active = j <= lengths + 1
-            v = cols[j]
-            f = prev_v.long()
-            q = lf_step(tab, _cvec(counts, n_strings_total), f, P)
+        j = ja
+        while j < jb:
+            if radix == 2 and j + 1 < jb:
+                q, v, active, P, counts, prev_v = _stage_step2(
+                    j, tab, cap, nst, cols, lengths, P, counts, prev_v)
+                j += 2
+            else:
+                q, v, active, P, counts, prev_v = _stage_step(
+                    j, tab, nst, cols, lengths, P, counts, prev_v)
+                j += 1
             cur, m = run_pass(cur, cap, q, v, active)
             n_valid = n_valid + m
-            P = torch.where(active, q, P)
-            counts = _bump_counts(counts, v, active)
-            prev_v = torch.where(active, v, prev_v)
     if int(n_valid) != n_cap:  # the one host sync of the stage loop
         raise RuntimeError(f"build inserted {int(n_valid)} symbols, expected {n_cap}")
     return bufs[cur], table, counts

@@ -3,7 +3,9 @@ PyTorch twin on the same CUDA tensors — one pass, a build, an extend build
 onto a non-empty base, and a streamed build — the query tiers (pair index,
 run tier, a chunked deep prefix cache, ``RleBWT``'s policy), the H-M and
 doubling merges and two gloo ranks sharing the card, each against the same
-functions on the CPU. Bit-exact throughout (tolerance 0: every output is an
+functions on the CPU; radix-2 builds (kernel == radix 1 == plain) and one
+radix-2 step against the CPU's; the profiling timers and trace, and the
+session-health memory probe. Bit-exact throughout (tolerance 0: every output is an
 integer).
 
 Marked ``gpu``; without a card every test skips (the decision is made in a
@@ -360,3 +362,101 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
         assert np.array_equal(out["doubling.src"], srcs)
         assert np.array_equal(out["sharded_index.counts"], counts)
         assert np.array_equal(out["partitioned.counts"], counts)
+
+
+def _radix_reads(kind, tile):
+    """Builds whose buffer ends at a tile edge (2 tiles - 1, + 0, + 1
+    positions: 1,023 reads of 31 bp and one of 30-32), a build over many
+    tiles, and ragged reads (odd tails)."""
+    r = np.random.default_rng(len(kind))
+    if kind.startswith("edge"):
+        d = int(kind[4:])
+        n_reads = 2 * tile // 32 - 1
+        reads_l = [r.integers(1, 6, 31).astype(np.uint8) for _ in range(n_reads)]
+        reads_l.append(r.integers(1, 6, 31 + d).astype(np.uint8))
+    elif kind == "many_tiles":
+        reads_l = [r.integers(1, 6, 63).astype(np.uint8) for _ in range(4000)]
+    else:
+        reads_l = [r.integers(1, 6, r.integers(1, 60)).astype(np.uint8) for _ in range(3000)]
+    return encode_reads(reads_l)
+
+
+@pytest.mark.parametrize("kind,sorted_insert", [("edge-1", True), ("edge0", True),
+                                                ("edge1", True), ("many_tiles", True),
+                                                ("ragged", True), ("ragged", False)])
+def test_radix2_build_matches_radix1_and_plain(cuda, monkeypatch, kind, sorted_insert):
+    """A radix-2 build (2N slots a pass, unsorted) through the kernel ==
+    the radix-1 build == the radix-2 build through the plain pass."""
+    from rust_msbwt_tpu_torch import _kernels
+
+    reads, lengths = _radix_reads(kind, _kernels.load().msbwt_merge_tile())
+    if kind.startswith("edge"):
+        n = int(lengths.sum()) + lengths.size
+        assert n - 2 * _kernels.load().msbwt_merge_tile() == int(kind[4:])
+    out = {}
+    for name, radix, merge in (("r2", 2, merge_insert), ("r1", 1, merge_insert),
+                               ("r2_plain", 2, merge_insert_slots)):
+        monkeypatch.setenv("MSBWT_TPU_RADIX", str(radix))
+        before = merge_insert.launches
+        idx, packed = build_msbwt_with_index(reads, lengths, sorted_insert, device=cuda,
+                                             merge=merge)
+        out[name] = (idx.bwt, packed.table, merge_insert.launches - before)
+    L = reads.shape[1]
+    assert out["r1"][2] == 1 + L and out["r2"][2] == 1 + -(-L // 2)
+    assert out["r2_plain"][2] == 0
+    for name in ("r1", "r2_plain"):
+        assert torch.equal(out["r2"][0], out[name][0]) and torch.equal(out["r2"][1], out[name][1])
+
+
+def test_stage_step2_on_card_matches_cpu(cuda):
+    """One double-column step after stage 1 on ragged reads: every output on
+    ``cuda`` equals the CPU's."""
+    from rust_msbwt_tpu_torch.ops import bcr
+
+    reads, lengths = _ragged(2000, 61)
+    p = bcr._prepare_build(reads, lengths, True)
+    N, cap = p["N"], -(-p["n_cap"] // 128) * 128
+    outs = []
+    for dev in ("cpu", cuda):
+        cols = torch.from_numpy(p["cols"]).to(dev)
+        lens = torch.from_numpy(p["lengths"]).to(dev)
+        q1 = torch.arange(N, dtype=torch.int32, device=dev)
+        active = lens >= 0
+        buf = torch.full((cap,), 7, dtype=torch.uint8, device=dev)
+        _, table, _ = merge_insert(buf, q1, cols[1], active)
+        counts = bcr._bump_counts(torch.zeros(6, dtype=torch.int32, device=dev), cols[1], active)
+        res = bcr._stage_step2(2, table, cap, N, cols, lens, q1,
+                               counts, cols[1])
+        outs.append([t.cpu() for t in res])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_profiling_on_card(cuda, tmp_path):
+    """``timeit`` times the card (no faster than its memory allows);
+    ``trace`` records the kernel's device time."""
+    import os
+
+    from rust_msbwt_tpu_torch.utils import profiling
+
+    x = torch.ones(1 << 24, device=cuda)
+    assert profiling.timeit(lambda: x * 2, reps=3) > 2 * x.numel() * 4 / profiling.DEFAULT_HBM_BW
+    old, q, v, active = _case(100_000, 1000, 101_000, 7)
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    with profiling.trace(str(tmp_path)) as prof:
+        with profiling.annotate("merge"):
+            merge_insert(t(old), t(q), t(v), t(active))
+    assert len(os.listdir(tmp_path)) == 1
+    dev_us = [getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+              for e in prof.key_averages() if "merge_tiles" in e.key]
+    assert dev_us and max(dev_us) > 0
+
+
+def test_session_health_on_card(cuda):
+    """The memory probe counts one read and one write a pass: a healthy card
+    reads above 60% of its data-sheet rate."""
+    from rust_msbwt_tpu_torch.utils import profiling
+
+    h = profiling.session_health()
+    assert h["device"] == torch.cuda.get_device_name(0)
+    assert h["dispatch_roundtrip_ms"] > 0 and h["matmul_tflops_bf16"] > 0
+    assert h["mem_gbps"] > 0.6 * profiling.DEFAULT_HBM_BW / 1e9, h

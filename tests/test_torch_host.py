@@ -169,6 +169,7 @@ _DOCTEST_MODULES = [
     "utils.checkpoint", "apps.correct", "utils.oracle", "ops.merge",
     "parallel.sharded_merge", "parallel.doubling_merge", "parallel.sharded_build",
     "parallel.sharded_index", "parallel.partitioned", "parallel.multihost",
+    "utils.profiling",
 ]
 
 

@@ -24,7 +24,8 @@ for name in ("ops.extract", "utils.streaming", "cli.extract", "ops.pair_rank",
              "ops.run_rank", "utils.checkpoint", "apps.correct", "cli.correct",
              "cli.convert", "ops.merge", "utils.oracle", "parallel.mesh",
              "parallel.sharded_merge", "parallel.doubling_merge", "parallel.sharded_build",
-             "parallel.sharded_index", "parallel.partitioned", "parallel.multihost"):
+             "parallel.sharded_index", "parallel.partitioned", "parallel.multihost",
+             "utils.profiling"):
     assert pkg.__name__ + "." + name in names, name
 
 from rust_msbwt_tpu_torch.cli.build import main
@@ -43,4 +44,4 @@ def test_port_imports_no_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("OK")
-    assert int(res.stdout.split()[1]) >= 38  # every module was walked
+    assert int(res.stdout.split()[1]) >= 39  # every module was walked
