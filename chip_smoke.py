@@ -8,7 +8,10 @@ its paths at the repo's flagship size (5M x 100 bp reads from a 4.6 Mbase
 random genome, 505M BWT symbols, 1M 21-mer queries): the one-shot build
 with index and k-mer counting, the streamed build, load-and-extend, read
 recovery, the query side and the merges; then long reads (500k x 1,000 bp)
-at radix 1 and 2 and the query-tier budget at 1.515G symbols. It never falls back to the CPU and catches no
+at radix 1 and 2 and the query-tier budget at 1.515G symbols. Every path
+runs through the merge-insert kernel and the LF-step kernels (``lf_stage``
+a column, ``lf_walk`` a walk); each path resets every kernel's launch count
+just before it and reads them just after. It never falls back to the CPU and catches no
 failure: any phase that fails ends the run with a traceback and a non-zero
 exit code, and no result line.
 
@@ -22,26 +25,40 @@ Phases:
      inserts; times both (the kernel's prep included) against the pass's
      byte bound; with ``--parent DIR`` (a ``git archive`` of the parent
      commit) also the parent's Form 1 prep + kernel, in turns
+  3b. the LF-step kernels against their plain twins on the card, exact:
+     ``lf_stage`` at the edge shapes of ``tests/test_torch_gpu.py`` (N = 1,
+     every read inactive, P == n with n % 128 == 0, the last bin, ragged,
+     N = 1.1M past the grid cap) and the four ``lf_walk`` walks on its two
+     walk cases
   4. golden bytes: ``test_data/two_string.fa`` through the port's build CLI
      on ``cuda`` must give ``test_data/two_string.npy``
   5. 10k x 100 bp build on ``cuda``, byte-identical to the native reference
      builder (``csrc/msbwt_baseline.cpp``); then 10k reads extended by
-     another 10k, once through the kernel and once through the plain merge:
-     identical, and byte-identical to the native builder over all 20k
-  6. the 505M main path: build with index through the kernel (launch counts
+     another 10k, once through the kernels and once through the plain merge
+     and LF step (no kernel launched): identical, and byte-identical to the
+     native builder over all 20k
+  6. the 505M main path: build with index through the kernels (launch counts
      reset just before), 6^8 prefix cache, 1M x 21-mer counts; the same
-     build with the plain merge on the card must give the same BWT and
-     table; 20k counts must equal the native reference query loop
+     build with the plain merge and LF step on the card must give the same
+     BWT and table; 20k counts must equal the native reference query loop;
+     100 ``lf_stage`` launches and no walk
+  6b. ``lf_stage`` at full size: phase 6's reads built once more with the
+     column-90 inputs kept (the 505M loop's table, 5M reads), kernel ==
+     plain on them, both timed against the bytes the column must move
   7. the streamed path: the same 5M reads in 5 batches of 1M through
      ``StreamingBuilder`` (counts reset just before), checkpointed after 4;
      the BWT must equal phase 6's
   8. the load-and-extend path: ``DynamicBWT.load_numpy_file`` of the
      404M-symbol checkpoint + ``insert_strings`` of the last 1M reads
      (counts reset just before) must equal phase 6's BWT; then the parts
-     (index, read-length walk, terminator walk, extend build) timed apart
+     (index, read-length walk, terminator walk, extend build) timed apart,
+     and the terminator walk's inputs (1M walkers, the 404M base) through
+     the ``lf_walk`` kernel == its plain twin, both timed against its bound
   9. recovery on phase 6's index: 100k reads extracted must equal those
      rows of the sorted reads; every hit of 1,000 located 21-mers must be
-     where it says, with as many hits per query as phase 6 counted
+     where it says, with as many hits per query as phase 6 counted; the
+     read-length walk (5M walkers at 505M), the extract and the locate
+     walks on those inputs through the kernel == the plain twin, timed
  10. query tiers on phase 6's index and reads: the pair index, 6^9 and
      6^11 prefix caches and the run tier (from phase 6's RLE bytes), each
      built and timed; the 1M 21-mers counted through pair + 6^8, pair +
@@ -64,7 +81,8 @@ Phases:
      time of each); (c) phase 6's reads as FASTA through ``python -m
      torch.distributed.run --nproc-per-node 1 -m
      rust_msbwt_tpu_torch.cli.build --distributed`` (NCCL, world size 1):
-     its npy bytes == phase 6's BWT saved with ``save_bwt_runs``; (d) 50,000
+     its npy bytes == phase 6's BWT saved with ``save_bwt_runs``, and the
+     child's log must show 100 ``lf_stage`` launches; (d) 50,000
      of the reads on 4 gloo ranks sharing ``cuda:0``
      (``tests/_torch_dist_worker.py``): ``build_msbwt_sharded`` (tree,
      sharded dense, sharded ragged), ``sharded_doubling_merge`` of the four
@@ -75,18 +93,23 @@ Phases:
      the same genome (500.5M symbols) built with index at radix 1 and at
      radix 2 (``MSBWT_TPU_RADIX``, counts reset before each): equal BWTs
      and packed tables, 1,001 and 501 merge passes; the entry point timed
-     twice and the device loop three times for each, in turns, then the
-     inputs of the last radix-2 pass of one more device loop through the
-     kernel and the plain pass on the card: equal; (b) 20,000 of
-     them at radix 2 through the plain pass on the card == the kernel; (c)
-     the BWT of the first 400,000 loaded from RLE bytes and extended by the
-     last 100,000 at the automatic radix (counts reset just before) == (a)'s
-     BWT; (d) phase 6 checks its 101 passes (radix 1 at 100 bp); (e) 15M x
-     100 bp (1.515G symbols) built (counts reset just before) and encoded to
-     RLE bytes in memory: ``RleBWT`` with its default budget (the card's)
+     twice and the device loop three times for each, in turns; then one more
+     device loop at each radix keeping column 1,000's ``lf_stage`` inputs
+     (at radix 2 also the last pass's), and on those card tensors
+     ``lf_stage`` == its twin (timed) and the merge kernel == the plain
+     pass; (b) 20,000 of them at radix 2 through the plain pass and LF step
+     on the card == the kernels; (c) the BWT of the first 400,000 loaded
+     from RLE bytes and extended by the last 100,000 at the automatic radix
+     (counts reset just before) == (a)'s BWT, and its terminator and
+     read-length walks' inputs through ``lf_walk`` == the twins; (d) phase
+     6 checks its 101 passes (radix 1 at 100 bp); (e) 15M x 100 bp (1.515G
+     symbols) built (counts reset just before; column 90's ``lf_stage``
+     inputs, slots past 2^30, kept and held against the twin) and encoded
+     to RLE bytes in memory: ``RleBWT`` with its default budget (the card's)
      must pick pair + 6^9, with ``MSBWT_TPU_DEVICE_BUDGET_GB=12`` the run
      tier; their 1M counts == the packed tier's; each tier's peak memory
- 13. one JSON line of kernel results, then ``{"ok": true, "device": ...}``
+ 13. one JSON line of kernel results (``merge_insert``, ``lf_stage``,
+     ``lf_walk``), then ``{"ok": true, "device": ...}``
 """
 
 from __future__ import annotations
@@ -107,6 +130,7 @@ N_PARTS, N_PAIR, N_GLOO, N_GLOO_KMERS = 4, 1_000_000, 50_000, 20_000  # phase 11
 DEEP_K = 11  # the deepest prefix cache phase 10 builds
 LONG_READS, LONG_LEN, LONG_SMALL, LONG_BASE = 500_000, 1_000, 20_000, 400_000  # phase 12
 BIG_READS = 15_000_000  # phase 12e: 15M x 100 bp, 1.515G symbols
+LF_COL = 90  # phase 6b: the late column whose lf_stage inputs are kept
 
 
 def log(msg: str) -> None:
@@ -176,6 +200,195 @@ def cuda_ms(fn, reps):
     from rust_msbwt_tpu_torch.utils.profiling import timeit
 
     return timeit(fn, reps=reps) * 1e3
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0, just before a path."""
+    from rust_msbwt_tpu_torch.ops import lf
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+
+    merge_insert.launches = lf.lf_stage.launches = 0
+    for w in lf.LF_WALKS:
+        w.launches = 0
+
+
+def path_counts() -> dict:
+    """The launches since ``reset_counts``: the merge kernel, ``lf_stage``,
+    ``lf_walk`` and each of its four walks."""
+    from rust_msbwt_tpu_torch.ops import lf
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+
+    return {"merge_insert": merge_insert.launches, "lf_stage": lf.lf_stage.launches,
+            "lf_walk": lf.lf_walk_launches(),
+            **{w.__name__: w.launches for w in lf.LF_WALKS}}
+
+
+def lf_line(c: dict) -> str:
+    return (f"lf_stage launches {c['lf_stage']}, lf_walk launches {c['lf_walk']} "
+            f"(cyclic {c['lf_walk_cyclic']}, lengths {c['lf_walk_lengths']}, "
+            f"extract {c['lf_walk_extract']}, locate {c['lf_walk_locate']})")
+
+
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    """``module.name`` is ``fn`` inside the block, restored after."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def capture(module, name, keep=lambda *a: True):
+    """Inside the block ``module.name`` records (cloned) the arguments of
+    each call for which ``keep(*args)`` holds into the list it yields, and
+    runs as before."""
+    import torch
+
+    seen = []
+
+    def recording(*args):
+        if keep(*args):
+            seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return real(*args)
+
+    with swapped(module, name, recording) as real:
+        yield seen
+
+
+@contextlib.contextmanager
+def plain_lf():
+    """The build's LF step through the plain twins inside the block:
+    ``ops.bcr``'s ``lf_stage``, ``lf_walk_cyclic`` and ``lf_walk_lengths``."""
+    from rust_msbwt_tpu_torch.ops import bcr, lf
+
+    with contextlib.ExitStack() as stack:
+        for name in ("lf_stage", "lf_walk_cyclic", "lf_walk_lengths"):
+            stack.enter_context(swapped(bcr, name, getattr(lf, f"{name}_plain")))
+        yield
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block (a kernel held against its twin) are taken
+    back out of every wrapper's count: only a path's own launches count."""
+    from rust_msbwt_tpu_torch.ops import lf
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+
+    wrappers = (merge_insert, lf.lf_stage, *lf.LF_WALKS)
+    before = [w.launches for w in wrappers]
+    try:
+        yield
+    finally:
+        for w, n in zip(wrappers, before):
+            w.launches = n
+
+
+def agree(torch, name, kernel, plain, args) -> int:
+    """A kernel against its plain twin on the same card tensors, every
+    output exact (launches uncounted); logs and returns the max abs error."""
+    def outs(o):
+        return [torch.as_tensor(t) for t in (o if isinstance(o, tuple) else (o,))]
+
+    with uncounted():
+        got, want = outs(kernel(*args)), outs(plain(*args))
+    torch.cuda.synchronize()
+    check(len(got) == len(want) and all(g.shape == w.shape and g.dtype == w.dtype
+                                        for g, w in zip(got, want)),
+          f"{name}: kernel and plain outputs differ in shape or type")
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    check(err == 0, f"{name}: kernel != plain (max abs err {err})")
+    log(f"[lf] {name}: kernel == plain on the card (max abs err {err})")
+    return err
+
+
+def hold(torch, name, kernel, plain, args, bound_bytes, reps=10, plain_reps=2):
+    """``agree``, then both timed between CUDA events (launches uncounted);
+    the bound is ``bound_bytes`` at the data sheet's 3.35 TB/s."""
+    from rust_msbwt_tpu_torch.utils.profiling import DEFAULT_HBM_BW
+
+    err = agree(torch, name, kernel, plain, args)
+    with uncounted():
+        res = {"ms": cuda_ms(lambda: kernel(*args), reps),
+               "plain_ms": cuda_ms(lambda: plain(*args), plain_reps),
+               "bound_ms": bound_bytes / DEFAULT_HBM_BW * 1e3, "bound_bytes": bound_bytes,
+               "max_abs_err": err}
+    log(f"[lf] {name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({bound_bytes} B at 3.35 TB/s -> "
+        f"{res['bound_ms'] / res['ms']:.1%} of it)")
+    return res
+
+
+def hold_stage(torch, name, args, reps=20, plain_reps=3):
+    """``hold`` for one kept ``lf_stage`` column. Its bound is the bytes the
+    column must move for its data: 96 B of each distinct table row its reads
+    rank in (counted here and logged), and 20 B of carry a read (v, lengths,
+    P, prev_v in; q, active, P, prev_v out), counts in and out."""
+    from rust_msbwt_tpu_torch.ops import lf
+
+    j, tab, P = args[0], args[1], args[5]
+    rows = int(torch.unique(P.long() >> 7).numel())
+    res = hold(torch, f"lf_stage, column {j} of {name} ({P.numel()} reads, max P "
+               f"{int(P.max())}, {rows} distinct rows of the {tab.shape[0]}-row table)",
+               lf.lf_stage, lf.lf_stage_plain, args, 96 * rows + 20 * P.numel() + 48,
+               reps=reps, plain_reps=plain_reps)
+    res["rows"] = rows
+    return res
+
+
+def walk_bound_bytes(torch, walk, args) -> int:
+    """Bytes a walk must move for this run's data: each table row (96 B) and
+    BWT symbol its kernel reads, once (found by replaying the walk with torch
+    ops), each stage-view byte it reads, and its other inputs and its outputs
+    once."""
+    from rust_msbwt_tpu_torch.ops.packed_rank import lf_step
+
+    table, starts = args[:2] if walk == "cyclic" else args[1:3]
+    dev = table.device
+    rows = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
+    if walk == "cyclic":
+        _, _, n, cols, lengths, steps, n_steps = args
+        N = lengths.numel()
+        pos = torch.full((N,), n, dtype=torch.int32, device=dev)
+        m, col = lengths.long() + 1, torch.arange(N, device=dev)
+        lim = steps.clamp(max=n_steps)
+        for t in range(n_steps):
+            act = t < lim
+            rows[(pos.long() >> 7)[act]] = True
+            pos = torch.where(act, lf_step(table, starts, cols[t % m + 1, col], pos), pos)
+        return 96 * int(rows.sum()) + int(torch.minimum(lim, m).sum()) + 12 * N + 28
+    bwt = args[0]
+    syms = torch.zeros(bwt.numel(), dtype=torch.bool, device=dev)
+    if walk == "locate":
+        pos, n_strings, l_max = args[3:]
+        for _ in range(l_max + 1):
+            live = pos >= n_strings
+            p = pos.long()[live]
+            syms[p], rows[p >> 7] = True, True
+            pos = torch.where(live, lf_step(table, starts, torch.where(live, bwt[pos.long()], 0),
+                                            pos), pos)
+        return 96 * int(rows.sum()) + int(syms.sum()) + 12 * pos.numel() + 28
+    if walk == "lengths":  # from every '$' rotation until '$'
+        n, n_strings = args[3:]
+        pos, n_steps = torch.arange(n_strings, dtype=torch.int32, device=dev), n
+        io = 4 * n_strings + 4
+    else:  # extract: at most l_max + 1 steps
+        ids, l_max = args[3:]
+        pos, n_steps = ids.clone(), l_max + 1
+        io = ids.numel() * (5 + l_max)
+    live = torch.ones(pos.numel(), dtype=torch.bool, device=dev)
+    for _ in range(n_steps):
+        if not bool(live.any()):
+            break
+        syms[pos.long()[live]] = True
+        sym = bwt[pos.long()]
+        live &= sym != 0
+        rows[(pos.long() >> 7)[live]] = True
+        pos = torch.where(live, lf_step(table, starts, torch.where(live, sym, 0), pos), pos)
+    return 96 * int(rows.sum()) + int(syms.sum()) + io + 28
 
 
 def merge_case(n_old, n_ins, seed, frac_active=1.0, clustered=False, extra=0):
@@ -321,6 +534,57 @@ def time_505m(torch, args, new_k, tab_k, parent_lib, insert_maps, merge_insert,
     return times
 
 
+def phase_lf_edges(torch, dev):
+    """Phase 3b: the LF-step kernels == their plain twins on the card at the
+    edge shapes of tests/test_torch_gpu.py, exact."""
+    from rust_msbwt_tpu_torch.ops import lf
+
+    from test_torch_gpu import (  # tests/ (on sys.path)
+        LF_STAGE_KINDS,
+        LF_WALK_KINDS,
+        _as_list,
+        lf_stage_args,
+        lf_stage_case,
+        lf_walk_calls,
+        lf_walk_case,
+    )
+
+    cases = [(f"lf_stage {k}", lf.lf_stage, lf.lf_stage_plain,
+              lf_stage_args(lf_stage_case(k, len(k)), dev)) for k in LF_STAGE_KINDS]
+    cases.append(("lf_stage grid (N = 1,100,003)", lf.lf_stage, lf.lf_stage_plain,
+                  lf_stage_args(lf_stage_case("ragged", 99, N=1_100_003), dev)))
+    for k in LF_WALK_KINDS:
+        cases += [(f"lf_walk {w} ({k})", *call)
+                  for w, call in lf_walk_calls(lf_walk_case(k, len(k)), dev).items()]
+    for name, kernel, plain, args in cases:
+        got, want = _as_list(kernel(*args)), _as_list(plain(*args))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"{name}: kernel != plain")
+    torch.cuda.synchronize()
+    log(f"[lf] edge shapes: {len(cases)} cases, kernel == plain on the card, exact: "
+        + ", ".join(name for name, *_ in cases))
+
+
+def phase_lf_stage(torch, dev, reads, lengths, idx):
+    """Phase 6b: phase 6's reads through the device stage loop once more,
+    keeping column LF_COL's ``lf_stage`` inputs (the 505M loop's own table
+    and carry, 5M reads); the loop's BWT == phase 6's; the kernel == the
+    plain twin on those inputs, both timed against the column's bound."""
+    from rust_msbwt_tpu_torch.ops import bcr
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+
+    p = bcr._prepare_build(reads, lengths, True)
+    with capture(bcr, "lf_stage", keep=lambda j, *a: j == LF_COL) as seen:
+        buf, _, _ = bcr._build_device(p, dev, merge_insert)
+    check(torch.equal(buf[: idx.n], idx.bwt[: idx.n]), "505M stage loop != phase 6's BWT")
+    del buf, p
+    (args,) = seen
+    res = hold_stage(torch, "the 505M loop", args)
+    log(f"[lf] lf_stage: the access model (96 B of row + 20 B of carry a read) "
+        f"{116 * args[5].numel() / 3.35e12 * 1e3:.4f} ms")
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_golden(dev_name):
     """Phase 4: golden bytes through the port's build CLI on the card."""
     from rust_msbwt_tpu_torch.cli.build import main as build_main
@@ -361,27 +625,31 @@ def phase_extend_10k(torch, np, dev):
     reads, lengths = make_reads(20_000, 100, 0xE17E)
     out = {}
     for name, merge in (("kernel", merge_insert), ("plain", merge_insert_slots)):
-        before = merge_insert.launches
-        base, _ = build_msbwt_with_index(reads[:10_000], lengths[:10_000],
-                                         device=dev, merge=merge)
-        t0 = time.perf_counter()
-        out[name] = build_msbwt_with_index(reads[10_000:], lengths[10_000:], True,
-                                           base.bwt[: base.n], 10_000,
-                                           device=dev, merge=merge)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launched = merge_insert.launches - before
+        reset_counts()
+        with plain_lf() if name == "plain" else contextlib.nullcontext():
+            base, _ = build_msbwt_with_index(reads[:10_000], lengths[:10_000],
+                                             device=dev, merge=merge)
+            t0 = time.perf_counter()
+            out[name] = build_msbwt_with_index(reads[10_000:], lengths[10_000:], True,
+                                               base.bwt[: base.n], 10_000,
+                                               device=dev, merge=merge)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launched = path_counts()
         log(f"[extend-10k] {name}: extend of 10k onto {base.n} symbols "
-            f"{dt:.3f} s, merge kernel launches {launched}")
-        check(launched > 0 if name == "kernel" else launched == 0,
-              f"extend-10k ({name}): kernel launches {launched}")
+            f"{dt:.3f} s, merge kernel launches {launched['merge_insert']}, "
+            + lf_line(launched))
+        kernels = (launched["merge_insert"], launched["lf_stage"], launched["lf_walk_cyclic"],
+                   launched["lf_walk_lengths"])
+        check(min(kernels) > 0 if name == "kernel" else max(kernels) == 0,
+              f"extend-10k ({name}): launches {launched}")
     (idx_k, pk), (idx_p, pp) = out["kernel"], out["plain"]
     check(torch.equal(idx_k.bwt, idx_p.bwt) and torch.equal(pk.table, pp.table),
-          "10k extend: kernel != plain merge")
+          "10k extend: kernels != plain merge and LF step")
     want = baseline_build_native(list(reads), sorted_insert=True)
     check(np.array_equal(idx_k.bwt[: idx_k.n].cpu().numpy(), want),
           "10k + 10k extend != native reference builder over 20k")
-    log(f"[extend-10k] {idx_k.n} symbols: kernel == plain, byte-identical to "
+    log(f"[extend-10k] {idx_k.n} symbols: kernels == plain, byte-identical to "
         "csrc/msbwt_baseline.cpp over all 20k reads")
 
 
@@ -397,7 +665,7 @@ def median_s(torch, fn, reps=3):
 def phase_main(torch, np, dev, reads, lengths, kmers):
     """Phase 6: the 505M main path through the kernel, then checks."""
     from rust_msbwt_tpu_torch.ops.bcr import build_msbwt_with_index
-    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert, merge_insert_slots
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert_slots
     from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
     from rust_msbwt_tpu_torch.ops.rank import build_kmer_cache
     from rust_msbwt_tpu_torch.utils.native import (
@@ -410,7 +678,7 @@ def phase_main(torch, np, dev, reads, lengths, kmers):
     # --- the main path: counts reset just before, read just after ---
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    merge_insert.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     idx, packed = build_msbwt_with_index(reads, lengths, device=dev)
     torch.cuda.synchronize()
@@ -422,30 +690,38 @@ def phase_main(torch, np, dev, reads, lengths, kmers):
     cache_s = time.perf_counter() - t0
     q_s, counts = median_s(torch, lambda: count_kmers_packed(packed, kmers, cache=cache,
                                                              cache_k=8))
-    launches = merge_insert.launches
+    launches = path_counts()
     # --- end of the main path ---
 
     log(f"[main] build+index {build_s:.3f} s for {idx.n} symbols -> "
         f"{n_bases / build_s / 1e6:.2f} Mbases/s; peak device memory "
-        f"{peak / 2**30:.2f} GiB; merge kernel launches {launches}")
+        f"{peak / 2**30:.2f} GiB; merge kernel launches {launches['merge_insert']}, "
+        + lf_line(launches))
     log(f"[main] 6^8 cache {cache_s:.3f} s; 1M x {K}-mer counts median "
         f"{q_s:.3f} s -> {N_QUERIES / q_s:.0f} q/s (host in/out included); "
         f"mean count {counts.mean():.2f}")
-    check(launches == READ_LEN + 1,
-          f"the main path launched {launches} merge passes, not {READ_LEN + 1} (radix 1)")
+    check(launches["merge_insert"] == READ_LEN + 1,
+          f"the main path launched {launches['merge_insert']} merge passes, not "
+          f"{READ_LEN + 1} (radix 1)")
+    check(launches["lf_stage"] == READ_LEN and launches["lf_walk"] == 0,
+          f"the main path: {lf_line(launches)}, not {READ_LEN} columns and no walk")
     check(idx.n == n_bases + N_READS, "BWT length")
     check(counts.shape == (N_QUERIES,) and counts.min() >= 1,
           "every query k-mer occurs in the reads")
 
+    reset_counts()
     t0 = time.perf_counter()
-    idx_p, packed_p = build_msbwt_with_index(reads, lengths, device=dev,
-                                             merge=merge_insert_slots)
+    with plain_lf():
+        idx_p, packed_p = build_msbwt_with_index(reads, lengths, device=dev,
+                                                 merge=merge_insert_slots)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
+    plain_launches = path_counts()
     check(torch.equal(idx.bwt, idx_p.bwt) and torch.equal(packed.table, packed_p.table),
-          "505M build: kernel != plain merge")
-    log(f"[main] same build with the plain merge on the card: {plain_s:.3f} s; "
-        "BWT and packed table identical")
+          "505M build: kernels != plain merge and LF step")
+    check(max(plain_launches.values()) == 0, f"505M plain build launched {plain_launches}")
+    log(f"[main] same build with the plain merge and LF step on the card: {plain_s:.3f} s "
+        "(no kernel launched); BWT and packed table identical")
     del idx_p, packed_p
 
     bwt_host = idx.bwt[: idx.n].cpu().numpy()
@@ -463,7 +739,6 @@ def phase_main(torch, np, dev, reads, lengths, kmers):
 
 def phase_stream(torch, np, dev, reads, lengths, idx, ckpt):
     """Phase 7: the streamed path, 5 x 1M batches; checkpoint after 4."""
-    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
     from rust_msbwt_tpu_torch.utils.streaming import StreamingBuilder
 
     n_batches = N_READS // BATCH
@@ -471,7 +746,7 @@ def phase_stream(torch, np, dev, reads, lengths, idx, ckpt):
     # --- the streamed path: counts reset just before, read just after ---
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    merge_insert.launches = 0
+    reset_counts()
     batch_s = []
     for b in range(n_batches):
         t0 = time.perf_counter()
@@ -483,7 +758,7 @@ def phase_stream(torch, np, dev, reads, lengths, idx, ckpt):
             t0 = time.perf_counter()
             builder.checkpoint(ckpt)
             ckpt_s = time.perf_counter() - t0
-    launches = merge_insert.launches
+    launches = path_counts()
     peak = torch.cuda.max_memory_allocated()
     # --- end of the streamed path ---
     stream_s = sum(batch_s)
@@ -492,10 +767,13 @@ def phase_stream(torch, np, dev, reads, lengths, idx, ckpt):
         f"{n_bases / stream_s / 1e6:.2f} Mbases/s; per batch "
         + ", ".join(f"{t:.3f}" for t in batch_s)
         + f" s; peak device memory {peak / 2**30:.2f} GiB; merge kernel "
-        f"launches {launches}")
+        f"launches {launches['merge_insert']}, " + lf_line(launches))
     log(f"[stream] checkpoint after {n_batches - 1} batches: {ckpt_s:.3f} s, "
         f"{os.path.getsize(ckpt)} bytes")
-    check(launches > 0, "the streamed path launched no merge kernel")
+    check(launches["merge_insert"] > 0, "the streamed path launched no merge kernel")
+    check(launches["lf_stage"] == n_batches * READ_LEN
+          and launches["lf_walk_cyclic"] == n_batches - 1,
+          f"the streamed path: {lf_line(launches)}")
     got = builder.finish(device_out=True)
     check(torch.equal(got, idx.bwt[: idx.n]), "streamed BWT != one-shot BWT")
     log("[stream] BWT identical to the one-shot build")
@@ -505,8 +783,7 @@ def phase_stream(torch, np, dev, reads, lengths, idx, ckpt):
 def phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt):
     """Phase 8: load the 404M checkpoint, extend it by the last 1M reads."""
     from rust_msbwt_tpu_torch.models.dynamic import DynamicBWT
-    from rust_msbwt_tpu_torch.ops import bcr
-    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+    from rust_msbwt_tpu_torch.ops import bcr, lf
     from rust_msbwt_tpu_torch.ops.rle import decode_symbols_device
     from rust_msbwt_tpu_torch.utils.native import sort_rows_native
     from rust_msbwt_tpu_torch.utils.npy import load_bwt_bytes
@@ -516,7 +793,7 @@ def phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt):
     # --- the load-and-extend path: counts reset just before, read after ---
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    merge_insert.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     dyn = DynamicBWT(device=dev)
     dyn.load_numpy_file(ckpt)
@@ -527,14 +804,17 @@ def phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt):
     got = dyn.device_index
     torch.cuda.synchronize()
     extend_s = time.perf_counter() - t0
-    launches = merge_insert.launches
+    launches = path_counts()
     peak = torch.cuda.max_memory_allocated()
     # --- end of the load-and-extend path ---
     log(f"[load-extend] load {load_s:.3f} s (npy read + device decode of "
         f"{dyn.get_total_size() - int(lengths[last].sum()) - BATCH} symbols); "
         f"insert {BATCH} reads + materialize {extend_s:.3f} s; peak device "
-        f"memory {peak / 2**30:.2f} GiB; merge kernel launches {launches}")
-    check(launches > 0, "the load-and-extend path launched no merge kernel")
+        f"memory {peak / 2**30:.2f} GiB; merge kernel launches {launches['merge_insert']}, "
+        + lf_line(launches))
+    check(launches["merge_insert"] > 0, "the load-and-extend path launched no merge kernel")
+    check(launches["lf_stage"] == READ_LEN and launches["lf_walk_lengths"] == 1
+          and launches["lf_walk_cyclic"] == 1, f"the load-and-extend path: {lf_line(launches)}")
     check(got.n == idx.n and torch.equal(got.bwt[: got.n], idx.bwt[: idx.n]),
           "load + extend BWT != one-shot BWT")
     log("[load-extend] BWT identical to the one-shot build")
@@ -556,8 +836,9 @@ def phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt):
           "recovered read lengths")
     part("encode_reads", lambda: bcr.encode_reads(list(reads[last])))
     order = sort_rows_native(reads[last])
-    tp = part("terminator_positions", lambda: bcr.terminator_positions(
-        bidx, reads[last][order], lengths[last][order], READ_LEN + 1, bpacked))
+    with capture(bcr, "lf_walk_cyclic") as walk_args:
+        tp = part("terminator_positions", lambda: bcr.terminator_positions(
+            bidx, reads[last][order], lengths[last][order], READ_LEN + 1, bpacked))
     check(tp.shape == (BATCH,) and bool((tp[1:] >= tp[:-1]).all()),
           "terminator ranks of sorted reads are sorted")
     ext = part("extend_build", lambda: bcr.build_msbwt_with_index(
@@ -569,23 +850,40 @@ def phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt):
         + " (encode_reads: the host packing insert_strings does; "
         "terminator_positions includes the host stage view of 1M reads; "
         "extend_build includes its own terminator walk)")
-    return launches
+    # the terminator walk through the kernel and its plain twin, on its inputs
+    (args,) = walk_args
+    del ext, rle, base, tp, walk_args
+    walk = hold(torch, f"terminator walk ({BATCH} walkers, {args[6]} steps, on the "
+                f"{bpacked.n}-symbol base)", lf.lf_walk_cyclic, lf.lf_walk_cyclic_plain, args,
+                walk_bound_bytes(torch, "cyclic", args), reps=10, plain_reps=1)
+    walk["steps"] = args[6]
+    log(f"[lf] terminator walk: kernel {walk['ms'] / args[6]:.4f} ms a step, plain "
+        f"{walk['plain_ms'] / args[6]:.3f} ms a step; the access model (96 B of row + 1 B "
+        f"of stage view a walker step) {97 * BATCH * args[6] / 3.35e12 * 1e3:.3f} ms")
+    return launches, walk
 
 
 def phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts):
-    """Phase 9: extract 100k reads and locate 1,000 21-mers on phase 6's index."""
+    """Phase 9: extract 100k reads and locate 1,000 21-mers on phase 6's
+    index (counts reset just before, read just after); then the read-length,
+    extract and locate walks on those inputs through the kernel and the
+    plain twin."""
+    from rust_msbwt_tpu_torch.ops import extract, lf
     from rust_msbwt_tpu_torch.ops.bcr import read_lengths_from_bwt
     from rust_msbwt_tpu_torch.ops.extract import extract_reads, locate_kmers
     from rust_msbwt_tpu_torch.utils.native import sort_rows_native
 
     sorted_reads = reads[sort_rows_native(reads)]
     ids = np.random.default_rng(0x1D5).integers(0, N_READS, N_EXTRACT)
+    # --- the recovery path: counts reset just before, read just after ---
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     l_max = int(read_lengths_from_bwt(idx, N_READS, packed).max())
     rl_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    got = extract_reads(idx, ids, N_READS, l_max=l_max, packed=packed)
+    with capture(extract, "lf_walk_extract") as ex_args:
+        got = extract_reads(idx, ids, N_READS, l_max=l_max, packed=packed)
     ex_s = time.perf_counter() - t0
     check(l_max == READ_LEN and np.array_equal(np.stack(got), sorted_reads[ids]),
           "extracted reads != the sorted reads' rows")
@@ -594,22 +892,36 @@ def phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts):
         "(host out included); equal to the sorted reads")
     q_kmers = kmers[:N_LOCATE]
     t0 = time.perf_counter()
-    q, rid, off = locate_kmers(idx, q_kmers, N_READS, l_max=l_max, packed=packed)
+    with capture(extract, "lf_walk_locate") as loc_args:
+        q, rid, off = locate_kmers(idx, q_kmers, N_READS, l_max=l_max, packed=packed)
     loc_s = time.perf_counter() - t0
+    launches = path_counts()
+    # --- end of the recovery path ---
     where = sorted_reads[rid[:, None], off[:, None] + np.arange(K)[None, :]]
     check(bool((where == q_kmers[q]).all()), "a located hit is not its k-mer")
     check(np.array_equal(np.bincount(q, minlength=N_LOCATE), counts[:N_LOCATE]),
           "hits per query != phase 6 counts")
     log(f"[recovery] locate {N_LOCATE} x {K}-mers: {q.size} hits in {loc_s:.3f} s "
         f"-> {q.size / loc_s:.0f} hits/s (host in/out included); every hit "
-        "checked, hits per query == phase 6 counts")
+        "checked, hits per query == phase 6 counts; " + lf_line(launches))
+    check((launches["lf_walk_lengths"], launches["lf_walk_extract"],
+           launches["lf_walk_locate"]) == (1, 1, 1), f"the recovery path: {lf_line(launches)}")
+    walks = {}
+    for name, kernel, plain, args in (
+            ("lengths", lf.lf_walk_lengths, lf.lf_walk_lengths_plain,
+             (idx.bwt, packed.table, packed.starts, packed.n, N_READS)),
+            ("extract", lf.lf_walk_extract, lf.lf_walk_extract_plain, ex_args[0]),
+            ("locate", lf.lf_walk_locate, lf.lf_walk_locate_plain, loc_args[0])):
+        walkers = N_READS if name == "lengths" else args[3].numel()
+        walks[name] = hold(torch, f"{name} walk ({walkers} walkers at {packed.n} symbols)",
+                           kernel, plain, args, walk_bound_bytes(torch, name, args))
+    return launches, walks
 
 
 def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8, rle, d):
     """Phase 10: the query side at 505M on phase 6's index and reads."""
     from rust_msbwt_tpu_torch.apps.correct import correct_reads
     from rust_msbwt_tpu_torch.models.rle_bwt import RleBWT
-    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
     from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
     from rust_msbwt_tpu_torch.ops.pair_rank import build_pair_index, count_kmers_pair
     from rust_msbwt_tpu_torch.ops.rank import build_kmer_cache
@@ -661,7 +973,7 @@ def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8,
     npy = os.path.join(d, "bwt505.npy")
     save_bwt_bytes(rle, npy)
     torch.cuda.synchronize()
-    merge_insert.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     bwt = RleBWT(device=dev)
     bwt.load_numpy_file(npy)
@@ -670,16 +982,16 @@ def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8,
     t0 = time.perf_counter()
     got = bwt.count_kmers(kmers)
     first_s = time.perf_counter() - t0
-    launches = merge_insert.launches
+    launches = path_counts()
     above = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
     tier_ok = bwt._pair_index is not None and bwt._cache_k == 9 and bwt._run_index is None
     log(f"[tiers] RleBWT.load_numpy_file {load_s:.3f} s (npy read + the host pass over "
         f"the RLE bytes); first count_kmers {first_s:.3f} s (device decode, index, pair "
         f"index, 6^9 cache, 1M counts); tier pair + 6^{bwt._cache_k}; merge kernel "
-        f"launches {launches}; its peak {above / 2**30:.3f} GiB above what stays "
-        "resident (the headroom at 505M)")
+        f"launches {launches['merge_insert']}, {lf_line(launches)}; its peak "
+        f"{above / 2**30:.3f} GiB above what stays resident (the headroom at 505M)")
     check(tier_ok, "RleBWT did not pick pair + 6^9 at 505M")
-    check(launches >= 1, "RleBWT's load launched no merge kernel")
+    check(launches["merge_insert"] >= 1, "RleBWT's load launched no merge kernel")
     check(np.array_equal(got, counts), "RleBWT counts != phase 6 counts")
     s, got = median_s(torch, lambda: bwt.count_kmers(kmers))
     check(np.array_equal(got, counts), "RleBWT counts != phase 6 counts")
@@ -720,7 +1032,6 @@ def phase_merge_parts(torch, np, dev, reads, lengths, idx):
     (launches counted), merged in one doubling run == phase 6's BWT."""
     from rust_msbwt_tpu_torch.ops.bcr import build_msbwt
     from rust_msbwt_tpu_torch.ops.merge import multiway_bwt_merge
-    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
     from rust_msbwt_tpu_torch.utils.native import sort_rows_native
 
     order = sort_rows_native(reads)
@@ -728,16 +1039,17 @@ def phase_merge_parts(torch, np, dev, reads, lengths, idx):
     nl = -(-N_READS // N_PARTS)
     # --- the parts' builds: counts reset just before, read just after ---
     torch.cuda.synchronize()
-    merge_insert.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     parts = [build_msbwt(s_reads[g * nl: (g + 1) * nl], s_lengths[g * nl: (g + 1) * nl],
                          device=dev, device_out=True) for g in range(N_PARTS)]
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    launches = merge_insert.launches
+    launches = path_counts()
     # --- end of the parts' builds ---
     del s_reads, s_lengths
-    check(launches > 0, "the parts' builds launched no merge kernel")
+    check(launches["merge_insert"] > 0, "the parts' builds launched no merge kernel")
+    check(launches["lf_stage"] == N_PARTS * READ_LEN, f"the parts' builds: {lf_line(launches)}")
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
@@ -752,7 +1064,8 @@ def phase_merge_parts(torch, np, dev, reads, lengths, idx):
           and torch.bincount(srcs.long(), minlength=N_PARTS).tolist() == sizes,
           "merged source ids do not count the parts' sizes")
     log(f"[merge-parts] {N_PARTS} groups of sorted reads built in {build_s:.3f} s "
-        f"({sizes} symbols; merge kernel launches {launches}); multiway_bwt_merge "
+        f"({sizes} symbols; merge kernel launches {launches['merge_insert']}, "
+        f"{lf_line(launches)}); multiway_bwt_merge "
         f"{merge_s:.3f} s, {stats['rounds']} rounds -> {idx.n / merge_s / 1e6:.1f}M merged "
         f"symbols/s; peak device memory {peak / 2**30:.2f} GiB ({(peak - resident) / 2**30:.2f} "
         f"GiB above the {resident / 2**30:.2f} GiB resident); equal to phase 6's BWT, "
@@ -827,13 +1140,16 @@ def phase_distributed_cli(np, idx, reads, d):
     if res.returncode != 0:
         print(res.stderr[-4000:], file=sys.stderr)
     check(res.returncode == 0, f"torchrun --distributed build exited {res.returncode}")
-    found = re.search(r"over (\w+) .*\n(?s:.*)merge kernel launches (\d+)", res.stderr)
-    check(found is not None, "the distributed build logged no backend or launch count")
-    backend, launches = found.group(1), int(found.group(2))
+    found = re.search(r"over (\w+) .*\n(?s:.*)merge kernel launches (\d+), lf_stage "
+                      r"launches (\d+), lf_walk launches (\d+)", res.stderr)
+    check(found is not None, "the distributed build logged no backend or launch counts")
+    backend = found.group(1)
+    launches = dict(zip(("merge_insert", "lf_stage", "lf_walk"), map(int, found.groups()[1:])))
     same = open(out, "rb").read() == open(want, "rb").read()
     check(same, "distributed build npy != phase 6's BWT")
-    check(backend == "nccl" and launches > 0,
-          f"distributed build: backend {backend}, merge kernel launches {launches}")
+    check(backend == "nccl" and launches["merge_insert"] > 0
+          and launches["lf_stage"] == READ_LEN,
+          f"distributed build: backend {backend}, launches {launches}")
     # the child's own log clock: its start, group joined, records parsed,
     # BWT built and merged, file written
     marks = ["Input parameters", "torch.distributed: rank", "records [", "symbols merged",
@@ -848,7 +1164,9 @@ def phase_distributed_cli(np, idx, reads, d):
         f"{os.path.getsize(fa)} bytes of FASTA: child wall {wall:.3f} s (its log: group "
         f"join {steps[0]:.3f} s, FASTA parse {steps[1]:.3f} s, build + merge {steps[2]:.3f} s, "
         f"RLE + write {steps[3]:.3f} s), backend {backend}, world size 1, merge kernel "
-        f"launches {launches}; npy ({os.path.getsize(out)} bytes) identical to phase 6's BWT")
+        f"launches {launches['merge_insert']}, lf_stage launches {launches['lf_stage']}, "
+        f"lf_walk launches {launches['lf_walk']}; npy ({os.path.getsize(out)} bytes) "
+        "identical to phase 6's BWT")
     return launches, wall
 
 
@@ -912,14 +1230,16 @@ def radix_env(radix):
 def phase_long(torch, np, dev):
     """Phase 12a-c: 500k x 1,000 bp reads (500.5M symbols) built at radix 1
     and at radix 2 (counts reset before each): equal BWTs and tables, 1,001
-    and 501 passes; entry points and device loops timed in turns; the last
-    full-size radix-2 pass through the kernel == the plain pass; a 20k-read
-    radix-2 build through the plain pass == the kernel's; a 400k + 100k
-    load-and-extend at the automatic radix == the one-shot BWT."""
+    and 501 passes; entry points and device loops timed in turns; column
+    1,000's ``lf_stage`` at each radix and the last full-size radix-2 pass
+    through the kernels == the plain twins; a 20k-read radix-2 build through
+    the plain pass and LF step == the kernels'; a 400k + 100k load-and-extend
+    at the automatic radix == the one-shot BWT, its two walks through
+    ``lf_walk`` == the twins."""
     from statistics import median
 
     from rust_msbwt_tpu_torch.models.dynamic import DynamicBWT
-    from rust_msbwt_tpu_torch.ops import bcr
+    from rust_msbwt_tpu_torch.ops import bcr, lf
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert, merge_insert_slots
     from rust_msbwt_tpu_torch.ops.rle import encode_symbols
     from rust_msbwt_tpu_torch.utils.profiling import build_roofline, timed
@@ -932,18 +1252,21 @@ def phase_long(torch, np, dev):
             # --- the long-read path at this radix: counts reset just before ---
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            merge_insert.launches = 0
+            reset_counts()
             s, (idx, packed) = timed(lambda: bcr.build_msbwt_with_index(reads, lengths,
                                                                          device=dev))
-            out[radix] = (idx, packed, merge_insert.launches, torch.cuda.max_memory_allocated())
+            out[radix] = (idx, packed, path_counts(), torch.cuda.max_memory_allocated())
             # --- end of the long-read path ---
             builds[radix].append(s)
     (i1, p1, l1, peak1), (i2, p2, l2, peak2) = out[1], out[2]
     check(i1.n == i2.n == n, "long-read BWT length")
     check(torch.equal(i1.bwt, i2.bwt) and torch.equal(p1.table, p2.table),
           "500.5M long-read build: radix 2 != radix 1")
-    check((l1, l2) == (LONG_LEN + 1, LONG_LEN // 2 + 1),
-          f"long-read passes {l1} / {l2}, not {LONG_LEN + 1} / {LONG_LEN // 2 + 1}")
+    check((l1["merge_insert"], l2["merge_insert"]) == (LONG_LEN + 1, LONG_LEN // 2 + 1),
+          f"long-read passes {l1['merge_insert']} / {l2['merge_insert']}, not "
+          f"{LONG_LEN + 1} / {LONG_LEN // 2 + 1}")
+    check((l1["lf_stage"], l2["lf_stage"]) == (LONG_LEN, LONG_LEN // 2),
+          f"long-read lf_stage launches {l1['lf_stage']} / {l2['lf_stage']}")
     del i2, p2, out
     for radix in (2, 1):  # one more entry-point build each, the other order
         with radix_env(radix):
@@ -955,6 +1278,15 @@ def phase_long(torch, np, dev):
         for radix in ((1, 2) if rnd % 2 == 0 else (2, 1)):
             with radix_env(radix):
                 loops[radix].append(timed(lambda: bcr._build_device(p, dev, merge_insert))[0])
+    # column LONG_LEN's lf_stage inputs at radix 1 (a column) and radix 2
+    # (the last pair's first column): the kernel == the plain twin on them
+    def last_col(j, *args):
+        return j == LONG_LEN
+
+    with radix_env(1), capture(bcr, "lf_stage", keep=last_col) as stage1:
+        bcr._build_device(p, dev, merge_insert)
+    check(len(stage1) == 1, f"radix-1 loop kept {len(stage1)} columns")
+    stages = {1: hold_stage(torch, "the 500.5M loop at radix 1", stage1.pop())}
     # the last radix-2 pass at full size (2N unsorted slots into the buffer
     # of n - 2N symbols): the kernel == the plain pass on those card tensors
     seen, calls = [], [0]
@@ -965,10 +1297,12 @@ def phase_long(torch, np, dev):
         calls[0] += 1
         return merge_insert(old, q, v, active, **kw)
 
-    with radix_env(2):
+    with radix_env(2), capture(bcr, "lf_stage", keep=last_col) as stage2:
         bcr._build_device(p, dev, keep_last)
     del p
     check(calls[0] == LONG_LEN // 2 + 1 and len(seen) == 1, f"radix-2 run of {calls[0]} passes")
+    check(len(stage2) == 1, f"radix-2 loop kept {len(stage2)} columns")
+    stages[2] = hold_stage(torch, "the 500.5M loop at radix 2 (its last pair)", stage2.pop())
     (old, q, v, act), = seen
     got, want = merge_insert(old, q, v, act), merge_insert_slots(old, q, v, act)
     check(q.numel() == 2 * LONG_READS and int(want[2]) == 2 * LONG_READS,
@@ -990,33 +1324,40 @@ def phase_long(torch, np, dev):
             + " / ".join(f"{t:.3f}" for t in loops[radix])
             + f" s (median {loop:.3f}; full-buffer pass bound {bound.seconds_at_light:.3f} s "
             f"for {bound.bytes_touched} B); peak device memory {peak / 2**30:.2f} GiB; "
-            f"merge kernel launches {(l1, l2)[radix - 1]}")
+            f"merge kernel launches {(l1, l2)[radix - 1]['merge_insert']}, "
+            f"lf_stage launches {(l1, l2)[radix - 1]['lf_stage']}")
     log(f"[long] {LONG_READS} x {LONG_LEN} bp ({n} symbols): BWT and table equal at radix "
         f"1 and 2; device loop radix 1 / radix 2 = "
         f"{res[1]['loop_s'] / res[2]['loop_s']:.3f}, per-round ratios "
         + " / ".join(f"{a / b:.3f}" for a, b in zip(loops[1], loops[2])))
 
-    # (b) a small radix-2 build through the plain pass on the card
+    # (b) a small radix-2 build through the plain pass and LF step on the card
     small = slice(0, LONG_SMALL)
     with radix_env(2):
-        got = {name: bcr.build_msbwt_with_index(reads[small], lengths[small], device=dev,
-                                                merge=merge)
-               for name, merge in (("kernel", merge_insert), ("plain", merge_insert_slots))}
+        got = {"kernel": bcr.build_msbwt_with_index(reads[small], lengths[small], device=dev)}
+        reset_counts()
+        with plain_lf():
+            got["plain"] = bcr.build_msbwt_with_index(reads[small], lengths[small], device=dev,
+                                                      merge=merge_insert_slots)
+        plain_launches = path_counts()
     check(torch.equal(got["kernel"][0].bwt, got["plain"][0].bwt)
           and torch.equal(got["kernel"][1].table, got["plain"][1].table),
-          "20k long reads at radix 2: kernel != plain pass")
-    log(f"[long] {LONG_SMALL} x {LONG_LEN} bp at radix 2: the plain pass on the card == "
-        "the kernel (BWT and table)")
+          "20k long reads at radix 2: kernels != plain pass and LF step")
+    check(max(plain_launches.values()) == 0, f"20k plain build launched {plain_launches}")
+    log(f"[long] {LONG_SMALL} x {LONG_LEN} bp at radix 2: the plain pass and LF step on the "
+        "card (no kernel launched) == the kernels (BWT and table)")
     del got
 
     # (c) load-and-extend at the automatic radix
     base, _ = bcr.build_msbwt_with_index(reads[:LONG_BASE], lengths[:LONG_BASE], device=dev)
     rle = encode_symbols(base.bwt[: base.n].cpu().numpy())
     del base
-    with radix_env(None):
-        # --- the long-read extend: counts reset just before, read just after ---
+    with radix_env(None), capture(bcr, "lf_walk_cyclic") as cyc, \
+            capture(bcr, "lf_walk_lengths") as lens:
+        # --- the long-read extend: counts reset just before, read just after
+        # (the walks' inputs kept: device copies of ~1 GB inside the time) ---
         torch.cuda.synchronize()
-        merge_insert.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         dyn = DynamicBWT(device=dev)
         dyn.load_vector(rle)
@@ -1024,26 +1365,37 @@ def phase_long(torch, np, dev):
         ext = dyn.device_index
         torch.cuda.synchronize()
         ext_s = time.perf_counter() - t0
-        launches_ext = merge_insert.launches
+        launches_ext = path_counts()
         # --- end of the long-read extend ---
     radix = bcr.build_radix()
     check(ext.n == n and torch.equal(ext.bwt[: ext.n], i1.bwt[: i1.n]),
           "long-read load + extend != the one-shot BWT")
     log(f"[long] load {LONG_BASE} reads' BWT from RLE bytes + extend by "
         f"{LONG_READS - LONG_BASE} reads (auto radix {radix}): {ext_s:.3f} s, merge kernel "
-        f"launches {launches_ext}; equal to the one-shot BWT")
-    return l1, l2, launches_ext, res
+        f"launches {launches_ext['merge_insert']}, {lf_line(launches_ext)}; equal to the "
+        "one-shot BWT")
+    check(launches_ext["lf_stage"] > 0 and launches_ext["lf_walk_cyclic"] == 1
+          and launches_ext["lf_walk_lengths"] == 1, f"long-read extend: {lf_line(launches_ext)}")
+    del dyn, ext
+    (cargs,), (largs,) = cyc, lens
+    errs = [agree(torch, f"terminator walk of the long extend ({cargs[4].numel()} walkers, "
+                  f"{cargs[6]} steps, on the {cargs[2]}-symbol base)",
+                  lf.lf_walk_cyclic, lf.lf_walk_cyclic_plain, cargs),
+            agree(torch, f"lengths walk of the long extend ({largs[4]} walkers of "
+                  f"{LONG_LEN} bp, on the {largs[3]}-symbol base)",
+                  lf.lf_walk_lengths, lf.lf_walk_lengths_plain, largs)]
+    return l1, l2, launches_ext, res, stages, max(errs)
 
 
 def phase_budget(torch, np, dev):
     """Phase 12e: the query-tier budget at 1.515G symbols (15M x 100 bp):
-    build (counts reset just before), RLE bytes in memory, ``RleBWT`` with
+    build (counts reset just before; column LF_COL's ``lf_stage`` inputs kept
+    and held against the twin), RLE bytes in memory, ``RleBWT`` with
     its default budget (the card's) must pick pair + 6^9 and with
     ``MSBWT_TPU_DEVICE_BUDGET_GB=12`` the run tier; 1M counts of each ==
     the packed tier's; each tier's peak above what stays resident."""
     from rust_msbwt_tpu_torch.models.rle_bwt import RleBWT
-    from rust_msbwt_tpu_torch.ops.bcr import build_msbwt_with_index
-    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+    from rust_msbwt_tpu_torch.ops import bcr
     from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
     from rust_msbwt_tpu_torch.ops.rle import encode_symbols
     from rust_msbwt_tpu_torch.utils.profiling import timed
@@ -1051,21 +1403,33 @@ def phase_budget(torch, np, dev):
     reads, lengths = genome_reads(np, BIG_READS, READ_LEN, 0x1515)
     kmers = draw_kmers(np, np.random.default_rng(0x1516), reads)
     n = BIG_READS * (READ_LEN + 1)
-    # --- the 1.515G path: counts reset just before, read after the first batch ---
+    # --- the 1.515G path: counts reset just before, read after the first batch
+    # (column LF_COL's lf_stage inputs kept: ~3 GB of device copies in the build) ---
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    merge_insert.launches = 0
-    build_s, (idx, _) = timed(lambda: build_msbwt_with_index(reads, lengths, device=dev))
+    reset_counts()
+    with capture(bcr, "lf_stage", keep=lambda j, *a: j == LF_COL) as seen:
+        build_s, (idx, _) = timed(lambda: bcr.build_msbwt_with_index(reads, lengths,
+                                                                     device=dev))
     build_peak = torch.cuda.max_memory_allocated()
-    build_launches = merge_insert.launches
+    build_launches = path_counts()
     del reads
     rle = encode_symbols(idx.bwt[: idx.n].cpu().numpy())
     del idx
     torch.cuda.empty_cache()
     log(f"[budget] {BIG_READS} x {READ_LEN} bp ({n} symbols): build {build_s:.3f} s, peak "
-        f"device memory {build_peak / 2**30:.2f} GiB, merge kernel launches {build_launches}; "
+        f"device memory {build_peak / 2**30:.2f} GiB, merge kernel launches "
+        f"{build_launches['merge_insert']}, {lf_line(build_launches)}; "
         f"{rle.size} RLE bytes")
-    check(build_launches == READ_LEN + 1, f"1.515G build: {build_launches} passes")
+    check(build_launches["merge_insert"] == READ_LEN + 1
+          and build_launches["lf_stage"] == READ_LEN,
+          f"1.515G build: {build_launches['merge_insert']} passes, {lf_line(build_launches)}")
+    (args,) = seen
+    del seen
+    check(int(args[5].max()) >= 2**30, f"column {LF_COL} of the 1.515G build has no P >= 2^30")
+    stage = hold_stage(torch, "the 1.515G build", args, reps=5, plain_reps=1)
+    del args
+    torch.cuda.empty_cache()
 
     tiers = {}
     for name, budget_env in (("card budget", None), ("MSBWT_TPU_DEVICE_BUDGET_GB=12", "12")):
@@ -1085,8 +1449,10 @@ def phase_budget(torch, np, dev):
         tier = ("run" if bwt._run_index is not None
                 else "pair" if bwt._pair_index is not None else "packed")
         if budget_env is None:
-            launches = merge_insert.launches
+            launches = path_counts()
             # --- end of the 1.515G path ---
+            check(launches["lf_stage"] == READ_LEN and launches["lf_walk"] == 0,
+                  f"the 1.515G path: {lf_line(launches)}")
             want = count_kmers_packed(bwt.packed_index, kmers)
             check(tier == "pair" and bwt._cache_k == 9,
                   f"RleBWT at 1.515G with the card's budget picked {tier} + 6^{bwt._cache_k}")
@@ -1102,7 +1468,7 @@ def phase_budget(torch, np, dev):
             "the packed tier's")
         del bwt
         torch.cuda.empty_cache()
-    return launches, tiers
+    return launches, tiers, stage
 
 
 def main(argv=None) -> int:
@@ -1144,23 +1510,24 @@ def main(argv=None) -> int:
     log(f"[health] {json.dumps(session_health())}")
 
     max_err, times = phase_kernel(torch, dev, args.parent)
+    phase_lf_edges(torch, dev)
     phase_golden("cuda")
     phase_10k(np, dev)
     phase_extend_10k(torch, np, dev)
     reads, lengths, kmers = ecoli_config(np)
-    launches, idx, packed, counts, cache8, rle = phase_main(torch, np, dev, reads,
-                                                            lengths, kmers)
+    main_path, idx, packed, counts, cache8, rle = phase_main(torch, np, dev, reads,
+                                                             lengths, kmers)
+    stage = phase_lf_stage(torch, dev, reads, lengths, idx)
     with tempfile.TemporaryDirectory() as d:
         ckpt = os.path.join(d, "stream_ckpt.npy")
-        launches_stream = phase_stream(torch, np, dev, reads, lengths, idx, ckpt)
-        launches_load_extend = phase_load_extend(torch, np, dev, reads, lengths,
-                                                 idx, ckpt)
-    phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts)
+        stream = phase_stream(torch, np, dev, reads, lengths, idx, ckpt)
+        load_extend, walk = phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt)
+    recovery, walks = phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts)
     with tempfile.TemporaryDirectory() as d:
         launches_query = phase_query_tiers(torch, np, dev, reads, idx, packed, kmers,
                                            counts, cache8, rle, d)
     del cache8, rle, packed
-    launches_parts = phase_merge_parts(torch, np, dev, reads, lengths, idx)
+    parts = phase_merge_parts(torch, np, dev, reads, lengths, idx)
     torch.cuda.empty_cache()
     phase_pairwise(torch, np, dev, reads, lengths)
     torch.cuda.empty_cache()
@@ -1170,25 +1537,28 @@ def main(argv=None) -> int:
         phase_gloo_ranks(torch, np, dev, reads, lengths, d)
     del reads, lengths, kmers, counts, idx
     torch.cuda.empty_cache()
-    launches_r1, launches_r2, launches_long_ext, _ = phase_long(torch, np, dev)
+    long_r1, long_r2, long_ext, _, long_stages, long_walk_err = phase_long(torch, np, dev)
     torch.cuda.empty_cache()
-    launches_budget, _ = phase_budget(torch, np, dev)
+    budget, _, big_stage = phase_budget(torch, np, dev)
 
+    paths = {"": main_path, "_stream": stream, "_load_extend": load_extend,
+             "_recovery": recovery, "_query": launches_query, "_merge_parts": parts,
+             "_distributed": launches_dist, "_long_radix1": long_r1,
+             "_long_radix2": long_r2, "_long_extend": long_ext, "_budget": budget}
+
+    def launches_of(kernel, skip=()):
+        return {f"launches{k}": c[kernel] for k, c in paths.items() if k not in skip}
+
+    columns = {"505m_col90": stage, "long_radix1_col1000": long_stages[1],
+               "long_radix2_col1000": long_stages[2], "1515m_col90": big_stage}
+    walk_err = max([walk["max_abs_err"], long_walk_err]
+                   + [w["max_abs_err"] for w in walks.values()])
     print(json.dumps({"kernels": [{
         "name": "merge_insert",
         "route": "cuda",
         "source": "rust_msbwt_tpu_torch/csrc/merge_insert.cu",
         "replaces": "rust_msbwt_tpu/ops/pallas_merge.py:159",
-        "launches": launches,
-        "launches_stream": launches_stream,
-        "launches_load_extend": launches_load_extend,
-        "launches_query": launches_query,
-        "launches_merge_parts": launches_parts,
-        "launches_distributed": launches_dist,
-        "launches_long_radix1": launches_r1,
-        "launches_long_radix2": launches_r2,
-        "launches_long_extend": launches_long_ext,
-        "launches_budget": launches_budget,
+        **launches_of("merge_insert", skip=("_recovery",)),
         "max_abs_err": max_err,
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],
@@ -1197,6 +1567,37 @@ def main(argv=None) -> int:
         "library_ms": None,
         "prep_included": True,
         "parent_ms": times["parent_ms"],
+    }, {
+        "name": "lf_stage",
+        "route": "cuda",
+        "source": "rust_msbwt_tpu_torch/csrc/lf.cu",
+        "replaces": "rust_msbwt_tpu/ops/bcr.py:444",
+        **launches_of("lf_stage", skip=("_recovery",)),
+        "max_abs_err": max(c["max_abs_err"] for c in columns.values()),
+        "ms": stage["ms"],
+        "plain_ms": stage["plain_ms"],
+        "bound_ms": stage["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "columns": {name: {k: c[k] for k in ("ms", "plain_ms", "bound_ms", "rows")}
+                    for name, c in columns.items()},
+    }, {
+        "name": "lf_walk",
+        "route": "cuda",
+        "source": "rust_msbwt_tpu_torch/csrc/lf.cu",
+        "replaces": "rust_msbwt_tpu/ops/bcr.py:1048",
+        # its main path is the streamed build's (the one-shot build walks nowhere)
+        "launches": stream["lf_walk"],
+        **launches_of("lf_walk", skip=("", "_stream")),
+        "max_abs_err": walk_err,
+        "ms": walk["ms"],
+        "plain_ms": walk["plain_ms"],
+        "bound_ms": walk["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "terminator_walk_steps": walk["steps"],
+        "walks": {name: {k: w[k] for k in ("ms", "plain_ms", "bound_ms")}
+                  for name, w in walks.items()},
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,14 +21,15 @@ timed. Then:
    size; the pair index build is profiled and the cache build timed
    first); then the last batch of the streamed build (1M reads onto the
    404M-symbol BWT of the first 4M): its terminator walk alone
-   (``_terminator_positions_impl`` on the stage view,
+   (``ops.lf.lf_walk_cyclic`` on the stage view,
    lengths and step counts already on the card, as the build runs it), its
    device stage loop (walk included) and its whole entry point
    (``build_msbwt_with_index`` with the base's index and bound given). Each
    runs once unprofiled, for its wall time; all but the entry point run once
    more under ``torch.profiler``, for the summed device time, the device's
    idle share of the unprofiled wall time, the device events per call and
-   the top device kernels and copies. The walk's share of the stage loop
+   the top device kernels and copies, and for stage loops the device events
+   a column. The walk's share of the stage loop
    and of the entry point comes from the unprofiled walls of this process.
 3. Unless ``--no-profile``: one round of ``chip_smoke.py`` phase 11a's
    doubling merge (``ops.merge._doubling_round``: the sorted reads in four
@@ -80,12 +81,14 @@ def wall_time(fn) -> float:
     return timed(fn)[0]
 
 
-def profiled(torch, fn, label: str, top: int, groups: dict | None = None) -> dict:
+def profiled(torch, fn, label: str, top: int, groups: dict | None = None,
+             columns: int = 0) -> dict:
     """Run ``fn()`` once unprofiled (its wall time: the profiler's CPU
     tracing slows every launch) and once under ``torch.profiler`` (its
     summed device time, device events and top events); print and return
     them. ``groups``: ``{label: predicate}`` on lower-case event names;
-    also the device time and share of each group."""
+    also the device time and share of each group. ``columns``: the BCR
+    columns ``fn`` runs; also the device events a column."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = wall_time(fn)
@@ -109,7 +112,11 @@ def profiled(torch, fn, label: str, top: int, groups: dict | None = None) -> dic
     if not evts:
         log(f"[{label}] the profiler recorded no device time")
     out = {"wall_s": wall, "profiled_wall_s": prof_wall, "device_s": dev_s,
-           "device_events": n_events, "top": rows}
+           "device_events": n_events, "idle_share": 1 - dev_s / wall, "top": rows}
+    if columns:
+        out["events_a_column"] = n_events / columns
+        log(f"[{label}] {n_events / columns:.1f} device events a column over {columns} "
+            "columns")
     for name, pred in (groups or {}).items():
         part = sum(_device_us(e) for e in evts if pred(e.key.lower())) * 1e-6
         n_part = sum(e.count for e in evts if pred(e.key.lower()))
@@ -218,7 +225,8 @@ def radix_sweep(torch, np, dev, top: int) -> list:
             with radix_env(radix):
                 row[f"profile_radix{radix}"] = profiled(
                     torch, lambda: _build_device(p, dev, merge_insert),
-                    f"L={L} radix {radix}", top, CORRECTIONS if radix == 2 else None)
+                    f"L={L} radix {radix}", top, CORRECTIONS if radix == 2 else None,
+                    columns=L)
         row["correction_ms_a_pair"] = correction_split(torch, dev, n_reads, p["n_cap"])
         del p
         log(f"[sweep] L={L} corrections alone, device ms a pair: " + ", ".join(
@@ -260,9 +268,9 @@ def main(argv=None) -> int:
         _build_device,
         _cyclic_steps,
         _prepare_build,
-        _terminator_positions_impl,
         build_msbwt_with_index,
     )
+    from rust_msbwt_tpu_torch.ops.lf import lf_walk_cyclic
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
     from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
     from rust_msbwt_tpu_torch.ops.pair_rank import build_pair_index, count_kmers_pair
@@ -314,7 +322,8 @@ def main(argv=None) -> int:
     if not args.no_profile:
         p = _prepare_build(reads, lengths, True)
         result["build_loop"] = profiled(
-            torch, lambda: _build_device(p, dev, merge_insert), "build loop", args.top)
+            torch, lambda: _build_device(p, dev, merge_insert), "build loop", args.top,
+            columns=READ_LEN)
         del p
         cache = build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 8)
         count_kmers_packed(packed, kmers, cache=cache, cache_k=8)  # warm-up
@@ -346,15 +355,15 @@ def main(argv=None) -> int:
         steps, n_steps = _cyclic_steps(p["lengths"], READ_LEN + 1, p["L"])
         steps = torch.from_numpy(steps).to(dev)
         walk = profiled(
-            torch, lambda: _terminator_positions_impl(bpacked.table, bpacked.starts,
-                                                      base.n, cols, lens, steps, n_steps),
+            torch, lambda: lf_walk_cyclic(bpacked.table, bpacked.starts, base.n, cols, lens,
+                                          steps, n_steps),
             "terminator walk", args.top)
         walk["steps"] = n_steps
         del cols, lens, steps
         loop = profiled(
             torch, lambda: _build_device(p, dev, merge_insert, base.bwt[: base.n],
                                          bpacked, READ_LEN + 1),
-            "extend loop", args.top)
+            "extend loop", args.top, columns=READ_LEN)
         del p
         entry_s = wall_time(lambda: build_msbwt_with_index(
             reads[last], lengths[last], True, base.bwt[: base.n], n0_reads,

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, bound with ``ctypes``:
+Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) into an
+object, all of them at once, and the objects are linked into one shared
+library with a plain C interface, bound with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o _build/libmsbwt_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c \\
+         -Xcompiler -fPIC -Xptxas -v -o _build/<name>.o csrc/<name>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libmsbwt_kernels.so _build/*.o
 
 The library goes to the git-ignored ``rust_msbwt_tpu_torch/_build/``. It is
 built at first use and rebuilt when a source is newer than it. Nothing here
@@ -56,19 +59,31 @@ def build() -> str:
     ):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", tmp, *srcs,
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {res.returncode}):\n{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, LIB_PATH)
-    return res.stdout + res.stderr
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o") for s in srcs]
+    procs = [subprocess.Popen(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-c",
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", o, s],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = f"{LIB_PATH}.{tag}"
+    try:
+        for s, p, log in zip(srcs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} (rc {p.returncode}):\n{log}")
+        res = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                              "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (rc {res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return "".join(logs) + res.stdout + res.stderr
 
 
 def load():
@@ -85,5 +100,15 @@ def load():
             lib.msbwt_merge_insert_scratch_len.argtypes = [i64, i64]
             lib.msbwt_merge_insert.restype = ctypes.c_int
             lib.msbwt_merge_insert.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i64, vp]
+            i32 = ctypes.c_int
+            for name, args in (
+                ("msbwt_lf_stage", [vp] * 11 + [i64, i32, i32, vp]),
+                ("msbwt_lf_walk_cyclic", [vp] * 6 + [i64, i64, i32, vp]),
+                ("msbwt_lf_walk_lengths", [vp] * 5 + [i64, i64, vp]),
+                ("msbwt_lf_walk_extract", [vp] * 6 + [i64, i32, vp]),
+                ("msbwt_lf_walk_locate", [vp] * 6 + [i64, i64, i32, vp]),
+            ):
+                getattr(lib, name).restype = ctypes.c_int
+                getattr(lib, name).argtypes = args
             _lib = lib
         return _lib

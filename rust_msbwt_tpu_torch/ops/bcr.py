@@ -3,10 +3,11 @@
 Port of the JAX package's ``ops.bcr`` (its Pallas-engine path). All N reads
 advance together, one suffix column per stage. Each stage does
 
-1. one rank per read off the packed rank table the previous pass emitted
-   (``ops.packed_rank.rank_packed``): the slot of every read's next symbol
-   is ``q = C[f] + rank(f, P)`` for the read's previous symbol f at its
-   previous slot P;
+1. one LF step per read off the packed rank table the previous pass
+   emitted (``ops.lf.lf_stage``, one hand-written CUDA kernel a column on
+   the card, its plain PyTorch twin on CPU tensors): the slot of every
+   read's next symbol is ``q = C[f] + rank(f, P)`` for the read's previous
+   symbol f at its previous slot P, with the carry and the symbol counts;
 2. one merge-insert pass (``ops.merge_insert``) that writes the merged
    buffer and its rank table together — the hand-written CUDA kernel on the
    card, its plain PyTorch twin on CPU tensors.
@@ -25,7 +26,9 @@ existing terminators for chronological inserts, and for sorted inserts at
 the rank of the read's ``$`` rotation among the base's rotations, found by
 a batched cyclic backward search (``terminator_positions``). That search
 needs the base's longest rotation, which ``read_lengths_from_bwt``
-recovers by LF walk when the caller does not know it.
+recovers by LF walk when the caller does not know it. Both walks run in
+one launch each on the card (``ops.lf.lf_walk_cyclic``,
+``lf_walk_lengths``).
 
 Capacity buckets. Early stages run on a nearly empty buffer, so the stage
 loop runs in buckets whose capacity grows by ``MSBWT_TPU_BUCKET_GROWTH``
@@ -56,8 +59,15 @@ import numpy as np
 import torch
 
 from rust_msbwt_tpu_torch.ops.alphabet import VC_LEN
+from rust_msbwt_tpu_torch.ops.lf import (
+    _bump_counts,
+    _cvec,
+    lf_stage,
+    lf_walk_cyclic,
+    lf_walk_lengths,
+)
 from rust_msbwt_tpu_torch.ops.merge_insert import ROW, merge_insert
-from rust_msbwt_tpu_torch.ops.packed_rank import PackedOccIndex, lf_step, rank_packed
+from rust_msbwt_tpu_torch.ops.packed_rank import PackedOccIndex, rank_packed
 from rust_msbwt_tpu_torch.ops.rank import (
     BIN,
     PAD,
@@ -67,7 +77,6 @@ from rust_msbwt_tpu_torch.ops.rank import (
 
 _I32 = torch.int32
 _I32_MAX = torch.iinfo(torch.int32).max  # radix-2 sort sentinel: above every slot
-LF_BLOCK = 32  # read-length walk: LF steps between two host checks
 
 
 # ---------------------------------------------------------------------------
@@ -187,33 +196,6 @@ def _base_symbols(base, device) -> torch.Tensor:
 # LF walks over the packed table (extend prep and read recovery)
 # ---------------------------------------------------------------------------
 
-def _read_lengths(bwt: torch.Tensor, packed: PackedOccIndex, n_strings: int) -> np.ndarray:
-    """LF walk from every terminator rotation (rows 0..n_strings-1) until the
-    '$' closes the cycle; the step count is the string's length. The walk's
-    length is what it measures, so the host checks for the end once every
-    ``LF_BLOCK`` steps (the JAX package checks after every step)."""
-    if n_strings == 0:
-        return np.zeros(0, dtype=np.int32)
-    dev = bwt.device
-    pos = torch.arange(n_strings, dtype=_I32, device=dev)
-    lengths = torch.zeros(n_strings, dtype=_I32, device=dev)
-    done = torch.zeros(n_strings, dtype=torch.bool, device=dev)
-    steps = 0
-    while True:
-        for _ in range(LF_BLOCK):
-            sym = bwt[pos.long()]
-            done |= sym == 0
-            lengths += (~done).to(_I32)
-            s = torch.where(done, 0, sym)
-            new_pos = lf_step(packed.table, packed.starts, s, pos)
-            pos = torch.where(done, pos, new_pos)
-        steps += LF_BLOCK
-        if bool(done.all()):
-            return lengths.cpu().numpy()
-        if steps > packed.n:  # a cycle that never meets '$'
-            raise ValueError("not a multi-string BWT: a terminator walk did not close")
-
-
 def read_lengths_from_bwt(index: OccIndex, n_strings: int,
                           packed: PackedOccIndex | None = None) -> np.ndarray:
     """Recover each string's length from a BWT by LF-walking backwards from
@@ -227,7 +209,8 @@ def read_lengths_from_bwt(index: OccIndex, n_strings: int,
     >>> read_lengths_from_bwt(idx, 2).tolist()  # ACGT, TGCA
     [4, 4]
     """
-    return _read_lengths(index.bwt, _packed_of(index, packed), n_strings)
+    packed = _packed_of(index, packed)
+    return lf_walk_lengths(index.bwt, packed.table, packed.starts, packed.n, n_strings)
 
 
 def _cyclic_steps(lengths: np.ndarray, base_rot_max: int, L: int):
@@ -238,35 +221,6 @@ def _cyclic_steps(lengths: np.ndarray, base_rot_max: int, L: int):
     steps = (-(-int(base_rot_max) // m) + 1) * m
     t_total = int(base_rot_max) + 2 * (L + 1)
     return steps.astype(np.int32), min(int(steps.max()), t_total)
-
-
-def _terminator_positions_impl(table, starts, n: int, cols, lengths, steps, n_steps: int):
-    """Batched *cyclic* backward search: the true rotation-order rank of each
-    new read's terminator rotation among the existing rotations.
-
-    The reference's insertion-point search walks the finite read once (ref:
-    src/dynamic_bwt.rs:311-331) and resolves terminator ties through its
-    sequential update order. A batched builder needs the true cyclic rank
-    directly, so the pattern ``('$' + S)`` repeated is backward-searched
-    until it is longer than any existing rotation's period plus the read's
-    own (Fine–Wilf: two distinct periodic sequences differ within the sum
-    of their periods). Read i takes ``steps[i]`` LF steps — whole cycles,
-    so its walk ends on a '$' step and the running upper bound is the rank.
-
-    Step t reads cycle index ``(len - t) mod (len + 1)`` right to left, which
-    in the stage view is ``cols[(t mod (len + 1)) + 1, i]`` (row len + 1 is
-    the '$'). No host sync: the loop bound ``n_steps`` is a host int.
-    """
-    N = lengths.shape[0]
-    dev = cols.device
-    pos = torch.full((N,), n, dtype=_I32, device=dev)
-    m = lengths.long() + 1
-    col = torch.arange(N, device=dev)
-    for t in range(n_steps):
-        sym = cols[t % m + 1, col]
-        new_pos = lf_step(table, starts, sym, pos)
-        pos = torch.where(t < steps, new_pos, pos)
-    return pos
 
 
 def terminator_positions(index: OccIndex, reads, lengths, base_rot_max: int,
@@ -293,7 +247,7 @@ def terminator_positions(index: OccIndex, reads, lengths, base_rot_max: int,
         cols = reads_to_cols(reads, lengths)
     dev = packed.table.device
     steps, n_steps = _cyclic_steps(lengths, base_rot_max, reads.shape[1])
-    return _terminator_positions_impl(
+    return lf_walk_cyclic(
         packed.table, packed.starts, packed.n, torch.from_numpy(cols).to(dev),
         torch.from_numpy(lengths).to(dev), torch.from_numpy(steps).to(dev), n_steps,
     )
@@ -302,25 +256,6 @@ def terminator_positions(index: OccIndex, reads, lengths, base_rot_max: int,
 # ---------------------------------------------------------------------------
 # the stage loop
 # ---------------------------------------------------------------------------
-
-def _cvec(counts: torch.Tensor, n_strings_total: int) -> torch.Tensor:
-    """C-array over rotation space: cvec[0] = 0; cvec[f>=1] counts every
-    string's '$' rotation (n_strings_total, including not-yet-inserted
-    terminators — the invariant that makes batched stages order-consistent)
-    plus buffer occurrences of symbols 1..f-1."""
-    cs = torch.cumsum(counts, 0, dtype=_I32)
-    cvec = torch.zeros(VC_LEN, dtype=_I32, device=counts.device)
-    cvec[1:] = n_strings_total + (cs[:-1] - counts[0])
-    return cvec
-
-
-def _bump_counts(counts, v, active):
-    # compare+reduce instead of an N-element scatter-add (no host sync)
-    ar6 = torch.arange(VC_LEN, device=v.device)
-    return counts + ((v.long()[:, None] == ar6[None, :]) & active[:, None]).sum(
-        0, dtype=_I32
-    )
-
 
 def _bucket_growth() -> float:
     """Capacity growth factor between stage buckets: ``MSBWT_TPU_BUCKET_GROWTH``,
@@ -456,24 +391,14 @@ def _stage1_slots(p: dict, cols, lengths, base, base_index, base_rot_max, merge)
     if base_index is None:
         _, base_index = index_from_symbols(base, merge=merge)
     if base_rot_max is None:
-        base_rot_max = int(_read_lengths(base, base_index, p["base_strings"]).max()) + 1
+        base_rot_max = int(lf_walk_lengths(base, base_index.table, base_index.starts,
+                                           base_index.n, p["base_strings"]).max()) + 1
     steps, n_steps = _cyclic_steps(p["lengths"], base_rot_max, p["L"])
-    base_pos = _terminator_positions_impl(
+    base_pos = lf_walk_cyclic(
         base_index.table, base_index.starts, n0, cols, lengths,
         torch.from_numpy(steps).to(cols.device), n_steps,
     )
     return base_pos + ar
-
-
-def _stage_step(j, tab, nst, cols, lengths, P, counts, prev_v):
-    """One BCR column j: each read's slot ``q = C[f] + rank(f, P)`` from
-    the current table ``tab`` (``nst`` strings in all). Returns the pass's
-    ``(q, v, active)`` and the carry ``(P, counts, prev_v)`` after it."""
-    active = j <= lengths + 1
-    v = cols[j]
-    q = lf_step(tab, _cvec(counts, nst), prev_v.long(), P)
-    return (q, v, active, torch.where(active, q, P), _bump_counts(counts, v, active),
-            torch.where(active, v, prev_v))
 
 
 def pair_order(q1: torch.Tensor, active1: torch.Tensor, cap: int):
@@ -533,12 +458,10 @@ def _stage_step2(j, tab, cap, nst, cols, lengths, P, counts, prev_v):
     below q1}`` (``pair_order``, ``pair_slots``). Reads inactive in column
     j+1 (odd tails of ragged reads) insert only ``v1``. Returns the pass's
     ``(q, v, active)`` over 2N slots and the carry after it; no host sync."""
-    active1 = j <= lengths + 1
+    q1, v1, active1, _, counts1, _ = lf_stage(j, tab, nst, cols, lengths, P, counts, prev_v)
     active2 = j + 1 <= lengths + 1  # implies active1
-    v1, v2 = cols[j], cols[j + 1]
-    q1 = lf_step(tab, _cvec(counts, nst), prev_v.long(), P)
+    v2 = cols[j + 1]
     order1, inv1, old_pos = pair_order(q1, active1, cap)
-    counts1 = _bump_counts(counts, v1, active1)
     v1l = v1.long()
     base2 = _cvec(counts1, nst)[v1l] + rank_packed(tab, v1l, old_pos)
     f1, q2 = pair_slots(q1, v1, active1, active2, order1, inv1, base2)
@@ -601,7 +524,7 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
                     j, tab, cap, nst, cols, lengths, P, counts, prev_v)
                 j += 2
             else:
-                q, v, active, P, counts, prev_v = _stage_step(
+                q, v, active, P, counts, prev_v = lf_stage(
                     j, tab, nst, cols, lengths, P, counts, prev_v)
                 j += 1
             cur, m = run_pass(cur, cap, q, v, active)

@@ -5,10 +5,11 @@ Read ``i`` (in lexicographic order — the order sorted construction stores
 them) is recovered by LF-walking backward from terminator rotation ``i``
 (BWT rows 0..n_strings-1 are the ``$`` rotations) until the walk closes the
 cycle at ``$``; the symbols visited are the read right-to-left. All
-requested reads walk together on the index's device, one packed-rank row
-gather per step, masked after each read's terminator; the host reads the
-result once, at the end. ``locate_kmers`` walks every row of each k-mer's
-range the same way until it enters the terminator block.
+requested reads walk together on the index's device, each to its end in
+one launch on the card (``ops.lf.lf_walk_extract``; its plain twin masks
+after each read's terminator); the host reads the result once, at the end.
+``locate_kmers`` walks every row of each k-mer's range the same way until
+it enters the terminator block (``ops.lf.lf_walk_locate``).
 """
 
 from __future__ import annotations
@@ -18,36 +19,9 @@ import torch
 
 from rust_msbwt_tpu_torch.ops.alphabet import VC_LEN
 from rust_msbwt_tpu_torch.ops.bcr import _packed_of, read_lengths_from_bwt
-from rust_msbwt_tpu_torch.ops.packed_rank import (
-    PackedOccIndex,
-    _kmer_ranges_packed_impl,
-    lf_step,
-)
+from rust_msbwt_tpu_torch.ops.lf import lf_walk_extract, lf_walk_locate
+from rust_msbwt_tpu_torch.ops.packed_rank import PackedOccIndex, _kmer_ranges_packed_impl
 from rust_msbwt_tpu_torch.ops.rank import OccIndex
-
-_I32 = torch.int32
-
-
-def _extract_impl(bwt, table, starts, ids, l_max: int):
-    """``l_max + 1`` LF steps from rows ``ids``: the read right-aligned in
-    ``[B, l_max]`` (0-filled on the left) and whether each walk closed."""
-    B = ids.shape[0]
-    pos = ids.to(_I32)
-    out = torch.zeros((B, l_max), dtype=torch.uint8, device=bwt.device)
-    done = torch.zeros(B, dtype=torch.bool, device=bwt.device)
-    for t in range(l_max + 1):
-        sym = bwt[pos.long()]
-        hit_end = sym == 0
-        keep = ~done & ~hit_end
-        # symbols arrive right-to-left: column l_max-1-t. The extra last
-        # step lets length-l_max reads observe their terminator; it writes
-        # nothing (keep is False there for every read that closes)
-        col = min(max(l_max - 1 - t, 0), l_max - 1)
-        out[:, col] = torch.where(keep, sym, out[:, col])
-        new_pos = lf_step(table, starts, torch.where(keep, sym, 0), pos)
-        pos = torch.where(keep, new_pos, pos)
-        done |= hit_end
-    return out, done
 
 
 def _walk_bound(index: OccIndex, packed: PackedOccIndex, n_strings: int,
@@ -81,27 +55,12 @@ def extract_reads(index: OccIndex, ids, n_strings: int, l_max: int | None = None
         raise ValueError(f"read ids must be in [0, {n_strings})")
     packed = _packed_of(index, packed)
     l_max = _walk_bound(index, packed, n_strings, l_max)
-    out, done = _extract_impl(index.bwt, packed.table, packed.starts,
+    out, done = lf_walk_extract(index.bwt, packed.table, packed.starts,
                               torch.from_numpy(ids).to(index.bwt.device), l_max)
     if not bool(done.all()):
         raise ValueError(f"l_max={l_max} too small: some reads did not close")
     out = out.cpu().numpy()
     return [row[row != 0] for row in out]
-
-
-def _locate_walk_impl(bwt, table, starts, pos, n_strings: int, l_max: int):
-    """LF-walk every BWT row in ``pos`` backward until it enters the
-    terminator block (rows < n_strings). Returns (read_id, offset): the
-    terminator row IS the read's lexicographic id, and a row whose suffix
-    starts at read offset j takes j+1 steps to reach it."""
-    steps = torch.zeros(pos.shape, dtype=_I32, device=pos.device)
-    for _ in range(l_max + 1):
-        active = pos >= n_strings
-        sym = bwt[pos.long()]
-        new_pos = lf_step(table, starts, torch.where(active, sym, 0), pos)
-        pos = torch.where(active, new_pos, pos)
-        steps += active.to(_I32)
-    return pos, steps - 1
 
 
 def locate_kmers(index: OccIndex, kmers, n_strings: int, lengths=None,
@@ -148,7 +107,7 @@ def locate_kmers(index: OccIndex, kmers, n_strings: int, lengths=None,
     first = np.concatenate([[0], np.cumsum(counts[:-1])]).astype(np.int32)
     pos = np.repeat(lo, counts) + (np.arange(qidx.size, dtype=np.int32)
                                    - np.repeat(first, counts))
-    rid, off = _locate_walk_impl(
+    rid, off = lf_walk_locate(
         index.bwt, packed.table, packed.starts,
         torch.from_numpy(pos.astype(np.int32)).to(dev), n_strings,
         _walk_bound(index, packed, n_strings, l_max),

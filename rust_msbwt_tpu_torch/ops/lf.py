@@ -1,0 +1,318 @@
+"""The LF step over the packed rank table: two hand-written CUDA kernels
+(``csrc/lf.cu``) and their plain PyTorch twins.
+
+The JAX package runs these as XLA fusions inside one compiled program
+(``ops.bcr._pallas_stage_step`` in a ``fori_loop``, the walks' own
+``fori_loop``s); the port ran them as eager torch ops, tens of kernels and
+host launches a column or a walk step. Here each is one launch:
+
+* **lf_stage** — one BCR column of the stage loop: every read's slot
+  ``q = C[f] + rank(f, P)`` for its previous symbol ``f = prev_v`` at its
+  previous slot ``P``, off one table row; ``active = j <= len + 1``; the
+  carry ``P``, ``prev_v`` and the symbol counts after the column.
+  ``lf_stage_plain`` is the plain version.
+* **lf_walk** — a batched LF walk run to its end inside one launch, one
+  thread a walker. Four walks share the kernel:
+  ``lf_walk_cyclic`` (the extend's cyclic terminator search, symbols from
+  the stage view), ``lf_walk_lengths`` (string lengths from the '$'
+  rotations: one launch and one host read, where the plain version checks
+  the host every ``LF_BLOCK`` steps), ``lf_walk_extract`` (reads
+  right-aligned) and ``lf_walk_locate`` (rows to their read id and offset),
+  the last three reading each step's symbol from the BWT. Each has a
+  ``*_plain`` twin.
+
+On a CUDA tensor a wrapper launches its kernel on the current stream (or
+raises); on a CPU tensor it runs the plain version. Each wrapper counts its
+kernel launches in ``.launches``. Every output is an integer and equal
+between the two, bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rust_msbwt_tpu_torch.ops.alphabet import VC_LEN
+from rust_msbwt_tpu_torch.ops.merge_insert import ROW, _check
+from rust_msbwt_tpu_torch.ops.packed_rank import lf_step
+
+_I32 = torch.int32
+LF_BLOCK = 32  # plain read-length walk: LF steps between two host checks
+
+
+def _cvec(counts: torch.Tensor, n_strings_total: int) -> torch.Tensor:
+    """C-array over rotation space: cvec[0] = 0; cvec[f>=1] counts every
+    string's '$' rotation (n_strings_total, including not-yet-inserted
+    terminators — the invariant that makes batched stages order-consistent)
+    plus buffer occurrences of symbols 1..f-1."""
+    cs = torch.cumsum(counts, 0, dtype=_I32)
+    cvec = torch.zeros(VC_LEN, dtype=_I32, device=counts.device)
+    cvec[1:] = n_strings_total + (cs[:-1] - counts[0])
+    return cvec
+
+
+def _bump_counts(counts, v, active):
+    # compare+reduce instead of an N-element scatter-add (no host sync)
+    ar6 = torch.arange(VC_LEN, device=v.device)
+    return counts + ((v.long()[:, None] == ar6[None, :]) & active[:, None]).sum(
+        0, dtype=_I32
+    )
+
+
+def _device_of(table: torch.Tensor) -> torch.device | None:
+    """None for a CPU table (the plain version runs); its CUDA device after
+    checking it is a 16 B-aligned ``[rows, 32]`` int32 table."""
+    dev = table.device
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"table: expected a CPU or CUDA tensor, got {dev}")
+    _check("table", table, _I32, (table.shape[0], ROW), dev, aligned=True)
+    return dev
+
+
+def _launch(fn_name: str, *args, dev: torch.device):
+    """Call the library's ``fn_name`` with tensors as their data pointers,
+    on ``dev``'s current stream; raise if the launch failed."""
+    from rust_msbwt_tpu_torch import _kernels
+
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = getattr(_kernels.load(), fn_name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# lf_stage: one BCR column
+# ---------------------------------------------------------------------------
+
+def lf_stage_plain(j, tab, nst, cols, lengths, P, counts, prev_v):
+    """One BCR column j: each read's slot ``q = C[f] + rank(f, P)`` from
+    the current table ``tab`` (``nst`` strings in all). Returns the pass's
+    ``(q, v, active)`` and the carry ``(P, counts, prev_v)`` after it."""
+    active = j <= lengths + 1
+    v = cols[j]
+    q = lf_step(tab, _cvec(counts, nst), prev_v.long(), P)
+    return (q, v, active, torch.where(active, q, P), _bump_counts(counts, v, active),
+            torch.where(active, v, prev_v))
+
+
+def lf_stage(j: int, tab: torch.Tensor, nst: int, cols: torch.Tensor,
+             lengths: torch.Tensor, P: torch.Tensor, counts: torch.Tensor,
+             prev_v: torch.Tensor):
+    """One BCR column j, as ``lf_stage_plain``: ``(q, v, active, P, counts,
+    prev_v)``, every output a new tensor but ``v`` (the view ``cols[j]``).
+
+    ``tab`` int32 ``[rows, 32]`` (the current packed table), ``cols`` uint8
+    ``[L + 2, N]`` (the stage view), ``lengths`` / ``P`` int32 ``[N]``,
+    ``prev_v`` uint8 ``[N]``, ``counts`` int32 ``[6]``; ``nst`` the strings
+    in all. On CUDA tensors one launch (and a 24-byte memset of the new
+    counts); no host sync.
+    """
+    dev = _device_of(tab)
+    if dev is None:
+        return lf_stage_plain(j, tab, nst, cols, lengths, P, counts, prev_v)
+    N = P.shape[0]
+    if not 0 <= j < cols.shape[0]:
+        raise ValueError(f"column {j} outside the stage view of {cols.shape[0]} rows")
+    _check("cols", cols, torch.uint8, (cols.shape[0], N), dev)
+    _check("lengths", lengths, _I32, (N,), dev)
+    _check("P", P, _I32, (N,), dev)
+    _check("prev_v", prev_v, torch.uint8, (N,), dev)
+    _check("counts", counts, _I32, (VC_LEN,), dev)
+    if not 0 <= nst < 2**31:
+        raise ValueError("lf_stage: the string count must fit int32")
+    v = cols[j]
+    q = torch.empty(N, dtype=_I32, device=dev)
+    P_out = torch.empty(N, dtype=_I32, device=dev)
+    flags = torch.empty((2, N), dtype=torch.uint8, device=dev)
+    counts_out = torch.empty(VC_LEN, dtype=_I32, device=dev)
+    active, prev_out = flags[0].view(torch.bool), flags[1]
+    _launch("msbwt_lf_stage", tab, v, lengths, P, prev_v, counts, q, active, P_out,
+            prev_out, counts_out, N, j, nst, dev=dev)
+    lf_stage.launches += 1
+    return q, v, active, P_out, counts_out, prev_out
+
+
+lf_stage.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# lf_walk: batched LF walks, each run to its end in one launch
+# ---------------------------------------------------------------------------
+
+def lf_walk_cyclic_plain(table, starts, n: int, cols, lengths, steps, n_steps: int):
+    """The cyclic terminator search (``ops.bcr.terminator_positions``): N
+    walkers from row ``n``; step t reads cycle index ``(len - t) mod (len +
+    1)`` right to left, which in the stage view is ``cols[(t mod (len + 1))
+    + 1, i]``; walker i stops after ``steps[i]`` steps. No host sync: the
+    loop bound ``n_steps`` is a host int."""
+    N = lengths.shape[0]
+    dev = cols.device
+    pos = torch.full((N,), n, dtype=_I32, device=dev)
+    m = lengths.long() + 1
+    col = torch.arange(N, device=dev)
+    for t in range(n_steps):
+        sym = cols[t % m + 1, col]
+        new_pos = lf_step(table, starts, sym, pos)
+        pos = torch.where(t < steps, new_pos, pos)
+    return pos
+
+
+def lf_walk_cyclic(table: torch.Tensor, starts: torch.Tensor, n: int, cols: torch.Tensor,
+                   lengths: torch.Tensor, steps: torch.Tensor, n_steps: int) -> torch.Tensor:
+    """``lf_walk_cyclic_plain`` in one launch on CUDA tensors: int32 [N]
+    end rows. ``cols`` uint8 ``[L + 2, N]``, ``lengths`` / ``steps`` int32
+    ``[N]``, ``starts`` int32 ``[7]``; no host sync."""
+    dev = _device_of(table)
+    if dev is None:
+        return lf_walk_cyclic_plain(table, starts, n, cols, lengths, steps, n_steps)
+    N = lengths.shape[0]
+    _check("starts", starts, _I32, (VC_LEN + 1,), dev)
+    _check("cols", cols, torch.uint8, (cols.shape[0], N), dev)
+    _check("lengths", lengths, _I32, (N,), dev)
+    _check("steps", steps, _I32, (N,), dev)
+    pos = torch.empty(N, dtype=_I32, device=dev)
+    _launch("msbwt_lf_walk_cyclic", table, starts, cols, lengths, steps, pos, N, n, n_steps,
+            dev=dev)
+    lf_walk_cyclic.launches += 1
+    return pos
+
+
+def lf_walk_lengths_plain(bwt, table, starts, n: int, n_strings: int) -> np.ndarray:
+    """LF walk from every terminator rotation (rows 0..n_strings-1) until the
+    '$' closes the cycle; the step count is the string's length. The walk's
+    length is what it measures, so the host checks for the end once every
+    ``LF_BLOCK`` steps (the JAX package checks after every step)."""
+    if n_strings == 0:
+        return np.zeros(0, dtype=np.int32)
+    dev = bwt.device
+    pos = torch.arange(n_strings, dtype=_I32, device=dev)
+    lengths = torch.zeros(n_strings, dtype=_I32, device=dev)
+    done = torch.zeros(n_strings, dtype=torch.bool, device=dev)
+    steps = 0
+    while True:
+        for _ in range(LF_BLOCK):
+            sym = bwt[pos.long()]
+            done |= sym == 0
+            lengths += (~done).to(_I32)
+            s = torch.where(done, 0, sym)
+            new_pos = lf_step(table, starts, s, pos)
+            pos = torch.where(done, pos, new_pos)
+        steps += LF_BLOCK
+        if bool(done.all()):
+            return lengths.cpu().numpy()
+        if steps > n:  # a cycle that never meets '$'
+            raise ValueError("not a multi-string BWT: a terminator walk did not close")
+
+
+def lf_walk_lengths(bwt: torch.Tensor, table: torch.Tensor, starts: torch.Tensor, n: int,
+                    n_strings: int) -> np.ndarray:
+    """``lf_walk_lengths_plain`` in one launch on CUDA tensors: the int32
+    lengths on the host. A walker that takes ``n`` steps without meeting
+    '$' sets a device flag; the host reads it with the lengths, once, and
+    raises ``ValueError`` as the plain version does."""
+    dev = _device_of(table)
+    if dev is None:
+        return lf_walk_lengths_plain(bwt, table, starts, n, n_strings)
+    if n_strings == 0:
+        return np.zeros(0, dtype=np.int32)
+    _check("starts", starts, _I32, (VC_LEN + 1,), dev)
+    _check("bwt", bwt, torch.uint8, (bwt.shape[0],), dev)
+    if not n_strings <= n <= bwt.shape[0]:
+        raise ValueError(f"lf_walk_lengths: {n_strings} strings in a BWT of {n} symbols")
+    out = torch.empty(n_strings + 1, dtype=_I32, device=dev)  # lengths, then the flag
+    _launch("msbwt_lf_walk_lengths", table, starts, bwt, out, out[n_strings:], n_strings, n,
+            dev=dev)
+    lf_walk_lengths.launches += 1
+    out = out.cpu().numpy()
+    if out[-1]:
+        raise ValueError("not a multi-string BWT: a terminator walk did not close")
+    return out[:-1]
+
+
+def lf_walk_extract_plain(bwt, table, starts, ids, l_max: int):
+    """``l_max + 1`` LF steps from rows ``ids``: the read right-aligned in
+    ``[B, l_max]`` (0-filled on the left) and whether each walk closed."""
+    B = ids.shape[0]
+    pos = ids.to(_I32)
+    out = torch.zeros((B, l_max), dtype=torch.uint8, device=bwt.device)
+    done = torch.zeros(B, dtype=torch.bool, device=bwt.device)
+    for t in range(l_max + 1):
+        sym = bwt[pos.long()]
+        hit_end = sym == 0
+        keep = ~done & ~hit_end
+        # symbols arrive right-to-left: column l_max-1-t. The extra last
+        # step lets length-l_max reads observe their terminator; it writes
+        # nothing (keep is False there for every read that closes)
+        col = min(max(l_max - 1 - t, 0), l_max - 1)
+        out[:, col] = torch.where(keep, sym, out[:, col])
+        new_pos = lf_step(table, starts, torch.where(keep, sym, 0), pos)
+        pos = torch.where(keep, new_pos, pos)
+        done |= hit_end
+    return out, done
+
+
+def lf_walk_extract(bwt: torch.Tensor, table: torch.Tensor, starts: torch.Tensor,
+                    ids: torch.Tensor, l_max: int):
+    """``lf_walk_extract_plain`` in one launch on CUDA tensors: ``(out u8
+    [B, l_max], done bool [B])`` for int32 row ids ``ids``."""
+    dev = _device_of(table)
+    if dev is None:
+        return lf_walk_extract_plain(bwt, table, starts, ids, l_max)
+    B = ids.shape[0]
+    _check("starts", starts, _I32, (VC_LEN + 1,), dev)
+    _check("bwt", bwt, torch.uint8, (bwt.shape[0],), dev)
+    _check("ids", ids, _I32, (B,), dev)
+    out = torch.zeros((B, l_max), dtype=torch.uint8, device=dev)
+    done = torch.empty(B, dtype=torch.bool, device=dev)
+    _launch("msbwt_lf_walk_extract", table, starts, bwt, ids, out, done, B, l_max, dev=dev)
+    lf_walk_extract.launches += 1
+    return out, done
+
+
+def lf_walk_locate_plain(bwt, table, starts, pos, n_strings: int, l_max: int):
+    """LF-walk every BWT row in ``pos`` backward until it enters the
+    terminator block (rows < n_strings). Returns (read_id, offset): the
+    terminator row IS the read's lexicographic id, and a row whose suffix
+    starts at read offset j takes j+1 steps to reach it."""
+    steps = torch.zeros(pos.shape, dtype=_I32, device=pos.device)
+    for _ in range(l_max + 1):
+        active = pos >= n_strings
+        sym = bwt[pos.long()]
+        new_pos = lf_step(table, starts, torch.where(active, sym, 0), pos)
+        pos = torch.where(active, new_pos, pos)
+        steps += active.to(_I32)
+    return pos, steps - 1
+
+
+def lf_walk_locate(bwt: torch.Tensor, table: torch.Tensor, starts: torch.Tensor,
+                   pos: torch.Tensor, n_strings: int, l_max: int):
+    """``lf_walk_locate_plain`` in one launch on CUDA tensors: int32
+    ``(read_id, offset)`` for int32 rows ``pos``."""
+    dev = _device_of(table)
+    if dev is None:
+        return lf_walk_locate_plain(bwt, table, starts, pos, n_strings, l_max)
+    H = pos.shape[0]
+    _check("starts", starts, _I32, (VC_LEN + 1,), dev)
+    _check("bwt", bwt, torch.uint8, (bwt.shape[0],), dev)
+    _check("pos", pos, _I32, (H,), dev)
+    rid = torch.empty(H, dtype=_I32, device=dev)
+    off = torch.empty(H, dtype=_I32, device=dev)
+    _launch("msbwt_lf_walk_locate", table, starts, bwt, pos, rid, off, H, n_strings, l_max,
+            dev=dev)
+    lf_walk_locate.launches += 1
+    return rid, off
+
+
+lf_walk_cyclic.launches = 0
+lf_walk_lengths.launches = 0
+lf_walk_extract.launches = 0
+lf_walk_locate.launches = 0
+
+LF_WALKS = (lf_walk_cyclic, lf_walk_lengths, lf_walk_extract, lf_walk_locate)
+
+
+def lf_walk_launches() -> int:
+    """Launches of the ``lf_walk`` kernel, summed over its four walks."""
+    return sum(w.launches for w in LF_WALKS)

@@ -106,6 +106,7 @@ def build_from_fastx_distributed(filenames, sorted_strings: bool = True, *,
     ``(decoded_bwt, is_rank_zero)``; every rank gets the BWT, and only rank
     0 should write it."""
     from rust_msbwt_tpu_torch.models.dynamic import _fastx_records
+    from rust_msbwt_tpu_torch.ops import lf
     from rust_msbwt_tpu_torch.ops.bcr import encode_reads
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
 
@@ -122,8 +123,10 @@ def build_from_fastx_distributed(filenames, sorted_strings: bool = True, *,
     sl = process_read_slice(len(seqs))
     logger.info("rank %d/%d: records [%d, %d) of %d", me, d, sl.start, sl.stop, len(seqs))
     reads, lengths = encode_reads(seqs[sl])
-    launches = merge_insert.launches
+    launches = (merge_insert.launches, lf.lf_stage.launches, lf.lf_walk_launches())
     decoded = build_msbwt_multihost(reads, lengths, device=device)
-    logger.info("rank %d/%d: %d symbols merged on %s; merge kernel launches %d", me, d,
-                decoded.size, device, merge_insert.launches - launches)
+    logger.info("rank %d/%d: %d symbols merged on %s; merge kernel launches %d, lf_stage "
+                "launches %d, lf_walk launches %d", me, d, decoded.size, device,
+                merge_insert.launches - launches[0], lf.lf_stage.launches - launches[1],
+                lf.lf_walk_launches() - launches[2])
     return decoded, me == 0

@@ -5,8 +5,11 @@ run tier, a chunked deep prefix cache, ``RleBWT``'s policy), the H-M and
 doubling merges and two gloo ranks sharing the card, each against the same
 functions on the CPU; radix-2 builds (kernel == radix 1 == plain) and one
 radix-2 step against the CPU's; the profiling timers and trace, and the
-session-health memory probe. Bit-exact throughout (tolerance 0: every output is an
-integer).
+session-health memory probe; the LF-step kernels (``lf_stage``, the four
+``lf_walk`` walks) against their plain twins on the same CUDA tensors at
+edge shapes, and builds, extends, streamed builds, extract and locate
+through them against the CPU's plain path. Bit-exact throughout (tolerance
+0: every output is an integer).
 
 Marked ``gpu``; without a card every test skips (the decision is made in a
 fixture, never at import time). This file imports no jax, so it runs on a
@@ -460,3 +463,221 @@ def test_session_health_on_card(cuda):
     assert h["device"] == torch.cuda.get_device_name(0)
     assert h["dispatch_roundtrip_ms"] > 0 and h["matmul_tflops_bf16"] > 0
     assert h["mem_gbps"] > 0.6 * profiling.DEFAULT_HBM_BW / 1e9, h
+
+
+# --- the LF-step kernels (ops/lf.py, csrc/lf.cu) ----------------------------
+
+LF_STAGE_KINDS = ["one", "inactive", "terminal", "last_bin", "ragged"]
+
+
+def lf_stage_case(kind, seed, N=None):
+    """Inputs of one ``lf_stage`` column, from a seed (also run on the CPU
+    by tests/test_torch_lf.py against a numpy oracle): a symbol buffer of n
+    symbols (the column's table is its packed table), the stage view of
+    ragged reads, a carry and a column j. ``one``: N = 1; ``inactive``: j
+    past every read; ``terminal``: n % 128 == 0 and a third of the slots at
+    P == n (the terminal row); ``last_bin``: every P in the last, partial
+    bin; ``ragged``: anything else."""
+    r = np.random.default_rng(seed)
+    n = {"terminal": 1024, "last_bin": 1000}.get(kind, 777)
+    N = N or (1 if kind == "one" else 300)
+    L = 12
+    lengths = r.integers(1, L - 1 if kind == "inactive" else L + 1, N).astype(np.int32)
+    j = L + 1 if kind == "inactive" else int(r.integers(2, L + 2))
+    P = r.integers(n // 128 * 128 if kind == "last_bin" else 0, n + 1, N)
+    if kind == "terminal":
+        P[::3] = n
+    return dict(buf=r.integers(0, 6, n).astype(np.uint8), j=j,
+                nst=int(r.integers(N, 2 * N + 1)),
+                cols=r.integers(0, 6, (L + 2, N)).astype(np.uint8), lengths=lengths,
+                P=P.astype(np.int32), counts=r.integers(0, 50, 6).astype(np.int32),
+                prev_v=r.integers(0, 6, N).astype(np.uint8))
+
+
+def lf_stage_args(case, dev):
+    """``lf_stage``'s arguments for a case, on ``dev``."""
+    from rust_msbwt_tpu_torch.ops.merge_insert import packed_table_plain
+
+    t = lambda k: torch.from_numpy(case[k]).to(dev)  # noqa: E731
+    return (case["j"], packed_table_plain(t("buf")), case["nst"], t("cols"), t("lengths"),
+            t("P"), t("counts"), t("prev_v"))
+
+
+LF_WALK_KINDS = ["many", "aligned"]
+
+
+def lf_walk_case(kind, seed):
+    """A base BWT and a batch of new reads for the LF walks (also run on
+    the CPU by tests/test_torch_lf.py against the JAX package):
+    ``many``: 700 ragged base reads, 300 new; ``aligned``: 256 base reads
+    of 3 bp, so n = 1024 and the cyclic search starts on the terminal row.
+    Returns ``(base, n_strings, rot_max, reads, lengths)``, the new reads
+    sorted, as host arrays."""
+    from rust_msbwt_tpu_torch.ops.bcr import sort_reads
+
+    r = np.random.default_rng(seed)
+    if kind == "aligned":
+        base_l = [r.integers(1, 6, 3).astype(np.uint8) for _ in range(256)]
+        new_l = [r.integers(1, 6, r.integers(1, 6)).astype(np.uint8) for _ in range(77)]
+    else:
+        base_l = [r.integers(1, 6, r.integers(1, 41)).astype(np.uint8) for _ in range(700)]
+        new_l = [r.integers(1, 6, r.integers(1, 41)).astype(np.uint8) for _ in range(300)]
+    new_l += base_l[:5]  # ties with base terminators
+    base = build_msbwt(*encode_reads(base_l), device="cpu")
+    reads, lengths = sort_reads(*encode_reads(new_l))
+    return base, len(base_l), max(len(x) for x in base_l) + 1, reads, lengths
+
+
+def lf_walk_calls(case, dev):
+    """The four walks of a case as ``{name: (wrapper, plain, args)}``, the
+    arguments on ``dev``: the cyclic search of the new reads, the lengths
+    of the base's strings, every base read extracted (l_max its longest
+    read, and 2 less: some walks then do not close), every row located."""
+    from rust_msbwt_tpu_torch.ops import bcr, lf
+
+    base, n_strings, rot_max, reads, lengths = case
+    idx, packed = index_from_symbols(torch.from_numpy(base).to(dev))
+    tab, st, n = packed.table, packed.starts, packed.n
+    steps, n_steps = bcr._cyclic_steps(lengths, rot_max, reads.shape[1])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    cols = t(bcr.reads_to_cols(reads, lengths))
+    ids = t(np.arange(n_strings, dtype=np.int32)[::-1])
+    l_max = rot_max - 1
+    return {
+        "cyclic": (lf.lf_walk_cyclic, lf.lf_walk_cyclic_plain,
+                   (tab, st, n, cols, t(lengths), t(steps), n_steps)),
+        "lengths": (lf.lf_walk_lengths, lf.lf_walk_lengths_plain,
+                    (idx.bwt, tab, st, n, n_strings)),
+        "extract": (lf.lf_walk_extract, lf.lf_walk_extract_plain,
+                    (idx.bwt, tab, st, ids, l_max)),
+        "extract_short": (lf.lf_walk_extract, lf.lf_walk_extract_plain,
+                          (idx.bwt, tab, st, ids, max(l_max - 2, 1))),
+        "locate": (lf.lf_walk_locate, lf.lf_walk_locate_plain,
+                   (idx.bwt, tab, st, t(np.arange(n, dtype=np.int32)), n_strings, l_max)),
+    }
+
+
+def _as_list(out):
+    out = out if isinstance(out, tuple) else (out,)
+    return [torch.as_tensor(o).cpu() for o in out]
+
+
+@pytest.mark.parametrize("kind", LF_STAGE_KINDS + ["grid"])
+def test_lf_stage_kernel_matches_plain(cuda, kind):
+    """One column through the kernel and through ``lf_stage_plain`` on the
+    same CUDA tensors: every output equal, one launch. ``grid``: N =
+    1.1M, past the kernel's grid cap, so blocks take several strides."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_stage, lf_stage_plain
+
+    case = (lf_stage_case("ragged", 99, N=1_100_003) if kind == "grid"
+            else lf_stage_case(kind, len(kind)))
+    args = lf_stage_args(case, cuda)
+    before = lf_stage.launches
+    got = lf_stage(*args)
+    want = lf_stage_plain(*args)
+    torch.cuda.synchronize()
+    assert lf_stage.launches == before + 1
+    assert [g.dtype for g in got] == [w.dtype for w in want]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("walk", ["cyclic", "lengths", "extract", "extract_short", "locate"])
+@pytest.mark.parametrize("kind", LF_WALK_KINDS)
+def test_lf_walk_kernel_matches_plain(cuda, kind, walk):
+    """Each walk through the kernel and through its plain twin on the same
+    CUDA tensors: equal, one launch (walker counts not multiples of the
+    block)."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_walk_launches
+
+    wrapper, plain, args = lf_walk_calls(lf_walk_case(kind, len(kind)), cuda)[walk]
+    before = lf_walk_launches()
+    got, want = _as_list(wrapper(*args)), _as_list(plain(*args))
+    assert lf_walk_launches() == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_lf_walk_lengths_kernel_raises_on_open_walk(cuda):
+    """A BWT without '$' on the walk: the device flag raises ValueError."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_walk_lengths
+
+    idx, packed = index_from_symbols(torch.tensor([1, 1, 2, 2], dtype=torch.uint8,
+                                                  device=cuda))
+    with pytest.raises(ValueError, match="did not close"):
+        lf_walk_lengths(idx.bwt, packed.table, packed.starts, packed.n, 1)
+
+
+def test_lf_kernels_reject_bad_input(cuda):
+    from rust_msbwt_tpu_torch.ops.lf import lf_stage
+
+    j, tab, nst, cols, lengths, P, counts, prev_v = lf_stage_args(
+        lf_stage_case("ragged", 5), cuda)
+    with pytest.raises(TypeError):
+        lf_stage(j, tab, nst, cols, lengths, P.long(), counts, prev_v)
+    with pytest.raises(ValueError):
+        lf_stage(j, tab, nst, cols, lengths[:-1], P, counts, prev_v)
+    with pytest.raises(ValueError):
+        lf_stage(j, tab, nst, cols, lengths, P.cpu(), counts, prev_v)
+    with pytest.raises(ValueError):
+        lf_stage(cols.shape[0], tab, nst, cols, lengths, P, counts, prev_v)
+
+
+@pytest.mark.parametrize("radix", [1, 2])
+def test_build_counts_lf_stage_launches(cuda, monkeypatch, radix):
+    """A build on the card takes one lf_stage launch a column after stage
+    1 (L in all at radix 1, one a pass at radix 2) and none of the walks;
+    its BWT and table equal the CPU's plain path."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_stage, lf_walk_launches
+
+    monkeypatch.setenv("MSBWT_TPU_RADIX", str(radix))
+    reads, lengths = _ragged(1500, 71)
+    L = reads.shape[1]
+    before, walks = lf_stage.launches, lf_walk_launches()
+    idx, packed = build_msbwt_with_index(reads, lengths, device=cuda)
+    assert lf_stage.launches - before == (L if radix == 1 else -(-L // 2))
+    assert lf_walk_launches() == walks
+    idx_c, packed_c = build_msbwt_with_index(reads, lengths, device="cpu")
+    assert torch.equal(idx.bwt.cpu(), idx_c.bwt) and torch.equal(packed.table.cpu(), packed_c.table)
+
+
+@pytest.mark.parametrize("sorted_insert", [True, False])
+def test_extend_through_lf_kernels_matches_cpu(cuda, sorted_insert):
+    """An extend on the card (its read-length and cyclic walks and stage
+    columns through the kernels) and a streamed build == the CPU's."""
+    from rust_msbwt_tpu_torch.ops import lf
+
+    base_reads, base_lens = _ragged(900, 73)
+    reads, lengths = _ragged(700, 74)
+    base = build_msbwt(base_reads, base_lens, device="cpu")
+    before = (lf.lf_stage.launches, lf.lf_walk_lengths.launches, lf.lf_walk_cyclic.launches)
+    got = build_msbwt(reads, lengths, sorted_insert, base, 900, device=cuda)
+    after = (lf.lf_stage.launches, lf.lf_walk_lengths.launches, lf.lf_walk_cyclic.launches)
+    assert after[0] - before[0] == reads.shape[1]
+    assert [a - b for a, b in zip(after[1:], before[1:])] == ([1, 1] if sorted_insert else [0, 0])
+    assert np.array_equal(got, build_msbwt(reads, lengths, sorted_insert, base, 900,
+                                           device="cpu"))
+    b = StreamingBuilder(device=cuda)
+    for i in range(0, 700, 300):
+        b.add_batch(reads[i: i + 300], lengths[i: i + 300])
+    assert np.array_equal(b.finish(), build_msbwt(reads, lengths, device="cpu"))
+
+
+def test_extract_locate_through_lf_kernels_match_cpu(cuda):
+    from rust_msbwt_tpu_torch.ops import lf
+    from rust_msbwt_tpu_torch.ops.extract import extract_reads, locate_kmers
+
+    reads, lengths = _ragged(800, 75)
+    kmers = reads[:50, :4]
+    out = []
+    for dev in (cuda, "cpu"):
+        idx, packed = build_msbwt_with_index(reads, lengths, device=dev)
+        before = (lf.lf_walk_extract.launches, lf.lf_walk_locate.launches)
+        got = extract_reads(idx, np.arange(800), 800, packed=packed)
+        hits = locate_kmers(idx, kmers, 800, lengths=np.minimum(lengths[:50], 4),
+                            packed=packed)
+        launched = (lf.lf_walk_extract.launches - before[0],
+                    lf.lf_walk_locate.launches - before[1])
+        assert launched == ((1, 1) if dev == cuda else (0, 0))
+        out.append((got, hits))
+    (g_k, h_k), (g_c, h_c) = out
+    assert all(np.array_equal(a, b) for a, b in zip(g_k, g_c))
+    assert all(np.array_equal(a, b) for a, b in zip(h_k, h_c))
