@@ -10,8 +10,10 @@ with index and k-mer counting, the streamed build, load-and-extend, read
 recovery, the query side and the merges; then long reads (500k x 1,000 bp)
 at radix 1 and 2 and the query-tier budget at 1.515G symbols. Every path
 runs through the merge-insert kernel and the LF-step kernels (``lf_stage``
-a column, ``lf_walk`` a walk); each path resets every kernel's launch count
-just before it and reads them just after. It never falls back to the CPU and catches no
+a column, ``lf_walk`` a walk), and every k-mer search through the query
+kernels (``kmer_ranges_packed``, ``kmer_counts_pair``: one a batch); each
+path resets every kernel's launch count just before it and reads them just
+after. It never falls back to the CPU and catches no
 failure: any phase that fails ends the run with a traceback and a non-zero
 exit code, and no result line.
 
@@ -29,7 +31,10 @@ Phases:
      ``lf_stage`` at the edge shapes of ``tests/test_torch_gpu.py`` (N = 1,
      every read inactive, P == n with n % 128 == 0, the last bin, ragged,
      N = 1.1M past the grid cap) and the four ``lf_walk`` walks on its two
-     walk cases
+     walk cases; the query kernels against their twins, exact, at the query
+     edge shapes of ``tests/test_torch_gpu.py`` (B = 1, B = 0, every query
+     absent, n % 128 == 0, ragged lengths, caches 6^8 / 6^9 / 6^11, 1.1M
+     queries), both tiers
   4. golden bytes: ``test_data/two_string.fa`` through the port's build CLI
      on ``cuda`` must give ``test_data/two_string.npy``
   5. 10k x 100 bp build on ``cuda``, byte-identical to the native reference
@@ -41,7 +46,8 @@ Phases:
      reset just before), 6^8 prefix cache, 1M x 21-mer counts; the same
      build with the plain merge and LF step on the card must give the same
      BWT and table; 20k counts must equal the native reference query loop;
-     100 ``lf_stage`` launches and no walk
+     100 ``lf_stage`` launches and no walk; the three 1M-count batches
+     three ``kmer_ranges_packed`` launches and no ``kmer_counts_pair``
   6b. ``lf_stage`` at full size: phase 6's reads built once more with the
      column-90 inputs kept (the 505M loop's table, 5M reads), kernel ==
      plain on them, both timed against the bytes the column must move
@@ -58,17 +64,27 @@ Phases:
      rows of the sorted reads; every hit of 1,000 located 21-mers must be
      where it says, with as many hits per query as phase 6 counted; the
      read-length walk (5M walkers at 505M), the extract and the locate
-     walks on those inputs through the kernel == the plain twin, timed
+     walks on those inputs through the kernel == the plain twin, timed;
+     the locate's range search is one ``kmer_ranges_packed`` launch, its
+     inputs (1,000 21-mers from [0, n), no cache) kept and held against the
+     twin, exact
  10. query tiers on phase 6's index and reads: the pair index, 6^9 and
      6^11 prefix caches and the run tier (from phase 6's RLE bytes), each
      built and timed; the 1M 21-mers counted through pair + 6^8, pair +
      6^9, pair + 6^11, run + 6^8 and packed + 6^9 must equal phase 6's
-     counts. Then ``RleBWT.load_numpy_file`` of phase 6's BWT (counts reset
-     just before) must pick pair + 6^9 by itself, launch the merge kernel
-     and give the same counts; its query pack saved and loaded into a fresh
-     engine gives them again. Last, 10,000 reads with one substitution each
-     (an A, C, G or T turned into another of the four) must all come back
-     equal to the originals from ``correct_reads(k=21, tau=2)`` on the card
+     counts. Both query kernels held against their twins on these 505M
+     tensors (1M 21-mers: packed + 6^8, pair + 6^9), exact, timed against
+     the bytes the search must move (each row it touches once) and its
+     access model (one row a bound a step). Then ``RleBWT.load_numpy_file``
+     of phase 6's BWT (counts reset just before) must pick pair + 6^9 by
+     itself, launch the merge kernel and give the same counts, one
+     ``kmer_counts_pair`` launch a batch, cold and warm; its query pack
+     saved and loaded into a fresh engine gives them again. Last, 10,000
+     reads with one substitution each (an A, C, G or T turned into another
+     of the four) must all come back equal to the originals from
+     ``correct_reads(k=21, tau=2)`` on the card (counts reset just before):
+     one ``kmer_counts_pair`` launch a batch, each batch's inputs kept and
+     held against the twin, exact
  11. the H-M merge and the multi-device layer (``parallel/``), on phase 6's
      reads and BWT: (a) the sorted reads cut into 4 contiguous groups, as
      ``build_msbwt_sharded`` cuts them for D = 4, each built on the card
@@ -107,9 +123,12 @@ Phases:
      inputs, slots past 2^30, kept and held against the twin) and encoded
      to RLE bytes in memory: ``RleBWT`` with its default budget (the card's)
      must pick pair + 6^9, with ``MSBWT_TPU_DEVICE_BUDGET_GB=12`` the run
-     tier; their 1M counts == the packed tier's; each tier's peak memory
+     tier; their 1M counts == the packed tier's; each tier's peak memory;
+     ``kmer_counts_pair`` held against its twin on the card-budget engine's
+     pair table, 6^9 cache and 1M k-mers (positions past 2^30), exact, timed
  13. one JSON line of kernel results (``merge_insert``, ``lf_stage``,
-     ``lf_walk``), then ``{"ok": true, "device": ...}``
+     ``lf_walk``, ``kmer_ranges_packed``, ``kmer_counts_pair``), then
+     ``{"ok": true, "device": ...}``
 """
 
 from __future__ import annotations
@@ -202,31 +221,35 @@ def cuda_ms(fn, reps):
     return timeit(fn, reps=reps) * 1e3
 
 
-def reset_counts() -> None:
-    """Every kernel wrapper's launch count to 0, just before a path."""
-    from rust_msbwt_tpu_torch.ops import lf
+def wrappers() -> tuple:
+    """Every kernel wrapper: the merge kernel, ``lf_stage``, the four
+    ``lf_walk`` walks and the two query kernels."""
+    from rust_msbwt_tpu_torch.ops import lf, query
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
 
-    merge_insert.launches = lf.lf_stage.launches = 0
-    for w in lf.LF_WALKS:
+    return (merge_insert, lf.lf_stage, *lf.LF_WALKS, *query.QUERY_KERNELS)
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0, just before a path."""
+    for w in wrappers():
         w.launches = 0
 
 
 def path_counts() -> dict:
-    """The launches since ``reset_counts``: the merge kernel, ``lf_stage``,
-    ``lf_walk`` and each of its four walks."""
+    """The launches since ``reset_counts``: each wrapper's, and ``lf_walk``
+    summed over its four walks."""
     from rust_msbwt_tpu_torch.ops import lf
-    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
 
-    return {"merge_insert": merge_insert.launches, "lf_stage": lf.lf_stage.launches,
-            "lf_walk": lf.lf_walk_launches(),
-            **{w.__name__: w.launches for w in lf.LF_WALKS}}
+    return {"lf_walk": lf.lf_walk_launches(), **{w.__name__: w.launches for w in wrappers()}}
 
 
 def lf_line(c: dict) -> str:
     return (f"lf_stage launches {c['lf_stage']}, lf_walk launches {c['lf_walk']} "
             f"(cyclic {c['lf_walk_cyclic']}, lengths {c['lf_walk_lengths']}, "
-            f"extract {c['lf_walk_extract']}, locate {c['lf_walk_locate']})")
+            f"extract {c['lf_walk_extract']}, locate {c['lf_walk_locate']}), "
+            f"kmer_ranges_packed launches {c['kmer_ranges_packed']}, kmer_counts_pair "
+            f"launches {c['kmer_counts_pair']}")
 
 
 @contextlib.contextmanager
@@ -241,18 +264,26 @@ def swapped(module, name, fn):
 
 
 @contextlib.contextmanager
-def capture(module, name, keep=lambda *a: True):
-    """Inside the block ``module.name`` records (cloned) the arguments of
-    each call for which ``keep(*args)`` holds into the list it yields, and
-    runs as before."""
+def capture(module, name, keep=lambda *a: True, clone=True):
+    """Inside the block ``module.name`` records the arguments of each call
+    for which ``keep(*args)`` holds into the list it yields, and runs as
+    before. Arguments given by keyword are recorded in their place in the
+    signature. The tensors are cloned unless ``clone`` is false (for a
+    function whose arguments nothing writes after the call). A kernel
+    wrapper counts its launches on itself, so the capture goes on its
+    caller's module, never on the wrapper's own."""
+    import inspect
+
     import torch
 
     seen = []
 
-    def recording(*args):
-        if keep(*args):
-            seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
-        return real(*args)
+    def recording(*args, **kw):
+        full = inspect.signature(real).bind(*args, **kw).args if kw else args
+        if keep(*full):
+            seen.append(tuple(a.clone() if clone and isinstance(a, torch.Tensor) else a
+                              for a in full))
+        return real(*args, **kw)
 
     with swapped(module, name, recording) as real:
         yield seen
@@ -274,19 +305,15 @@ def plain_lf():
 def uncounted():
     """Launches inside the block (a kernel held against its twin) are taken
     back out of every wrapper's count: only a path's own launches count."""
-    from rust_msbwt_tpu_torch.ops import lf
-    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
-
-    wrappers = (merge_insert, lf.lf_stage, *lf.LF_WALKS)
-    before = [w.launches for w in wrappers]
+    before = {w: w.launches for w in wrappers()}
     try:
         yield
     finally:
-        for w, n in zip(wrappers, before):
+        for w, n in before.items():
             w.launches = n
 
 
-def agree(torch, name, kernel, plain, args) -> int:
+def agree(torch, name, kernel, plain, args, tag="lf") -> int:
     """A kernel against its plain twin on the same card tensors, every
     output exact (launches uncounted); logs and returns the max abs error."""
     def outs(o):
@@ -301,22 +328,22 @@ def agree(torch, name, kernel, plain, args) -> int:
     err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
               for g, w in zip(got, want))
     check(err == 0, f"{name}: kernel != plain (max abs err {err})")
-    log(f"[lf] {name}: kernel == plain on the card (max abs err {err})")
+    log(f"[{tag}] {name}: kernel == plain on the card (max abs err {err})")
     return err
 
 
-def hold(torch, name, kernel, plain, args, bound_bytes, reps=10, plain_reps=2):
+def hold(torch, name, kernel, plain, args, bound_bytes, reps=10, plain_reps=2, tag="lf"):
     """``agree``, then both timed between CUDA events (launches uncounted);
     the bound is ``bound_bytes`` at the data sheet's 3.35 TB/s."""
     from rust_msbwt_tpu_torch.utils.profiling import DEFAULT_HBM_BW
 
-    err = agree(torch, name, kernel, plain, args)
+    err = agree(torch, name, kernel, plain, args, tag)
     with uncounted():
         res = {"ms": cuda_ms(lambda: kernel(*args), reps),
                "plain_ms": cuda_ms(lambda: plain(*args), plain_reps),
                "bound_ms": bound_bytes / DEFAULT_HBM_BW * 1e3, "bound_bytes": bound_bytes,
                "max_abs_err": err}
-    log(f"[lf] {name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms, bound "
+    log(f"[{tag}] {name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms, bound "
         f"{res['bound_ms']:.4f} ms ({bound_bytes} B at 3.35 TB/s -> "
         f"{res['bound_ms'] / res['ms']:.1%} of it)")
     return res
@@ -389,6 +416,73 @@ def walk_bound_bytes(torch, walk, args) -> int:
         rows[(pos.long() >> 7)[live]] = True
         pos = torch.where(live, lf_step(table, starts, torch.where(live, sym, 0), pos), pos)
     return 96 * int(rows.sum()) + int(syms.sum()) + io + 28
+
+
+def query_bytes(torch, tier, args, packed) -> dict:
+    """Bytes a query batch must move for this run's data, in two models:
+    ``bound_bytes`` reads each table row the search touches once, and
+    ``access_bytes`` one row a bound a step (a round for the pair tier).
+    A packed row counts 96 B (the three sectors ``rank_at`` reads), a pair
+    row 128 B (its 96 B of planes and a sector of occurrence lanes); both
+    models add the k-mers, lengths and distinct cache entries read once, the
+    C array (and D) and the output written once. The rows are found by
+    replaying the search with torch ops on ``packed`` (a pair round's range
+    is the range after its two symbols; the pair search stops once a range
+    is empty, as its kernel does)."""
+    from rust_msbwt_tpu_torch.ops.packed_rank import rank_packed
+
+    pair = tier == "pair"
+    table = args[0]
+    n, kmers, lengths, cache, ck = args[3:] if pair else args[2:]
+    B, K = kmers.shape
+    dev = kmers.device
+    rows = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
+    io = B * K + 4 * B + (4 if pair else 8) * B + 28 + (144 if pair else 0)
+    lo = torch.zeros(B, dtype=torch.int32, device=dev)
+    hi = torch.full((B,), n, dtype=torch.int32, device=dev)
+    if not (ck and K >= ck):
+        ck = 0
+    if ck:
+        weights = 6 ** torch.arange(ck - 1, -1, -1, device=dev)
+        code = (kmers[:, K - ck:].long() * weights).sum(1)
+        lo, hi = cache.lo[code], cache.hi[code]
+        io += 8 * int(torch.unique(code).numel())
+    reads = 0
+    for t in range(ck, K):
+        act = t < lengths
+        if not pair or (t - ck) % 2 == 0:
+            live = act & (lo != hi) if pair else act
+            for pos in (lo, hi):
+                rows[(pos.long() >> 7).clamp(max=table.shape[0] - 1)[live]] = True
+            reads += 2 * int(live.sum())
+        s = torch.where(act, kmers[:, K - 1 - t].to(torch.int32), 0)
+        c = packed.starts[s.long()]
+        lo = torch.where(act, c + rank_packed(packed.table, s, lo), lo)
+        hi = torch.where(act, c + rank_packed(packed.table, s, hi), hi)
+    row_b = 128 if pair else 96
+    n_rows = int(rows.sum())
+    return {"bound_bytes": row_b * n_rows + io, "access_bytes": row_b * reads + io,
+            "rows": n_rows, "row_reads": reads}
+
+
+def hold_query(torch, name, tier, args, packed, reps=20, plain_reps=3) -> dict:
+    """``hold`` for one query batch of ``tier`` (``"packed"``: the
+    ``kmer_ranges_packed`` kernel, ``"pair"``: ``kmer_counts_pair``)
+    against its bound, and its access model apart (``query_bytes``)."""
+    from rust_msbwt_tpu_torch.ops import packed_rank, pair_rank, query
+    from rust_msbwt_tpu_torch.utils.profiling import DEFAULT_HBM_BW
+
+    kernel, plain = ((query.kmer_counts_pair, pair_rank.kmer_counts_pair_plain) if tier == "pair"
+                     else (query.kmer_ranges_packed, packed_rank.kmer_ranges_packed_plain))
+    by = query_bytes(torch, tier, args, packed)
+    res = hold(torch, f"{name} ({by['rows']} distinct rows of the {args[0].shape[0]}-row "
+               f"table, {by['row_reads']} row reads)", kernel, plain, args, by["bound_bytes"],
+               reps=reps, plain_reps=plain_reps, tag="query")
+    res.update(rows=by["rows"], row_reads=by["row_reads"],
+               access_ms=by["access_bytes"] / DEFAULT_HBM_BW * 1e3)
+    log(f"[query] {name}: the access model (one row a bound a step, {by['access_bytes']} B) "
+        f"{res['access_ms']:.4f} ms -> {res['access_ms'] / res['ms']:.1%} of it")
+    return res
 
 
 def merge_case(n_old, n_ins, seed, frac_active=1.0, clustered=False, extra=0):
@@ -564,6 +658,25 @@ def phase_lf_edges(torch, dev):
         + ", ".join(name for name, *_ in cases))
 
 
+def phase_query_edges(torch, dev):
+    """Phase 3b (queries): both query kernels == their plain twins on the
+    card at the query edge shapes of tests/test_torch_gpu.py, exact."""
+    from test_torch_gpu import QUERY_CASES, _as_list, query_calls, query_case
+
+    names = []
+    for kind, ck in QUERY_CASES:
+        case = query_case(kind, ck)
+        name = f"{kind}" + (f" + 6^{ck}" if ck else "")
+        for tier, (kernel, plain, args) in query_calls(case, dev).items():
+            got, want = _as_list(kernel(*args)), _as_list(plain(*args))
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{tier} {name}: kernel != plain")
+        names.append(f"{name} (B = {case['kmers'].shape[0]}, n = {case['dec'].size})")
+    torch.cuda.synchronize()
+    log(f"[query] edge shapes, packed and pair tiers: {len(names)} cases, kernel == plain on "
+        "the card, exact: " + ", ".join(names))
+
+
 def phase_lf_stage(torch, dev, reads, lengths, idx):
     """Phase 6b: phase 6's reads through the device stage loop once more,
     keeping column LF_COL's ``lf_stage`` inputs (the 505M loop's own table
@@ -705,6 +818,8 @@ def phase_main(torch, np, dev, reads, lengths, kmers):
           f"{READ_LEN + 1} (radix 1)")
     check(launches["lf_stage"] == READ_LEN and launches["lf_walk"] == 0,
           f"the main path: {lf_line(launches)}, not {READ_LEN} columns and no walk")
+    check(launches["kmer_ranges_packed"] == 3 and launches["kmer_counts_pair"] == 0,
+          f"the main path's three count batches: {lf_line(launches)}")
     check(idx.n == n_bases + N_READS, "BWT length")
     check(counts.shape == (N_QUERIES,) and counts.min() >= 1,
           "every query k-mer occurs in the reads")
@@ -867,9 +982,11 @@ def phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts):
     """Phase 9: extract 100k reads and locate 1,000 21-mers on phase 6's
     index (counts reset just before, read just after); then the read-length,
     extract and locate walks on those inputs through the kernel and the
-    plain twin."""
-    from rust_msbwt_tpu_torch.ops import extract, lf
+    plain twin, and the locate's uncached range search through
+    ``kmer_ranges_packed`` and its twin."""
+    from rust_msbwt_tpu_torch.ops import extract, lf, query
     from rust_msbwt_tpu_torch.ops.bcr import read_lengths_from_bwt
+    from rust_msbwt_tpu_torch.ops.packed_rank import kmer_ranges_packed_plain
     from rust_msbwt_tpu_torch.ops.extract import extract_reads, locate_kmers
     from rust_msbwt_tpu_torch.utils.native import sort_rows_native
 
@@ -892,7 +1009,8 @@ def phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts):
         "(host out included); equal to the sorted reads")
     q_kmers = kmers[:N_LOCATE]
     t0 = time.perf_counter()
-    with capture(extract, "lf_walk_locate") as loc_args:
+    with (capture(extract, "lf_walk_locate") as loc_args,
+          capture(extract, "_kmer_ranges_packed_impl", clone=False) as range_args):
         q, rid, off = locate_kmers(idx, q_kmers, N_READS, l_max=l_max, packed=packed)
     loc_s = time.perf_counter() - t0
     launches = path_counts()
@@ -904,8 +1022,9 @@ def phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts):
     log(f"[recovery] locate {N_LOCATE} x {K}-mers: {q.size} hits in {loc_s:.3f} s "
         f"-> {q.size / loc_s:.0f} hits/s (host in/out included); every hit "
         "checked, hits per query == phase 6 counts; " + lf_line(launches))
-    check((launches["lf_walk_lengths"], launches["lf_walk_extract"],
-           launches["lf_walk_locate"]) == (1, 1, 1), f"the recovery path: {lf_line(launches)}")
+    check((launches["lf_walk_lengths"], launches["lf_walk_extract"], launches["lf_walk_locate"],
+           launches["kmer_ranges_packed"]) == (1, 1, 1, 1),
+          f"the recovery path: {lf_line(launches)}")
     walks = {}
     for name, kernel, plain, args in (
             ("lengths", lf.lf_walk_lengths, lf.lf_walk_lengths_plain,
@@ -915,13 +1034,33 @@ def phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts):
         walkers = N_READS if name == "lengths" else args[3].numel()
         walks[name] = hold(torch, f"{name} walk ({walkers} walkers at {packed.n} symbols)",
                            kernel, plain, args, walk_bound_bytes(torch, name, args))
-    return launches, walks
+    (rargs,) = range_args
+    check(len(rargs) == 5, "the locate's range search was given a cache")
+    ranges = {"max_abs_err": agree(
+        torch, f"locate's range search ({rargs[3].shape[0]} x {K}-mers from [0, {rargs[2]}), "
+        "no cache)", query.kmer_ranges_packed, kmer_ranges_packed_plain, rargs, tag="query")}
+    return launches, walks, ranges
+
+
+def substituted_reads(np, reads):
+    """The first ``N_CORRECT`` reads and a copy with one substitution in
+    each (an A, C, G or T turned into another of the four), from seed
+    0xC0EC7: ``(orig, bad)``."""
+    rng = np.random.default_rng(0xC0EC7)
+    orig = reads[:N_CORRECT].copy()
+    bad = orig.copy()
+    dna = np.array([1, 2, 3, 5], np.uint8)
+    for i in range(N_CORRECT):
+        p = rng.choice(np.flatnonzero(orig[i] != 4))
+        bad[i, p] = rng.choice(dna[dna != orig[i, p]])
+    return orig, bad
 
 
 def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8, rle, d):
     """Phase 10: the query side at 505M on phase 6's index and reads."""
     from rust_msbwt_tpu_torch.apps.correct import correct_reads
     from rust_msbwt_tpu_torch.models.rle_bwt import RleBWT
+    from rust_msbwt_tpu_torch.ops import pair_rank, query
     from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
     from rust_msbwt_tpu_torch.ops.pair_rank import build_pair_index, count_kmers_pair
     from rust_msbwt_tpu_torch.ops.rank import build_kmer_cache
@@ -968,6 +1107,17 @@ def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8,
         log(f"[tiers] 1M x {K}-mer counts, {name}: median {s:.4f} s -> {qps[name]:.0f} q/s "
             "(host in/out included); equal to phase 6")
     del cache11, run, rcache8
+    # both query kernels against their twins on the 505M tensors of a leg
+    km = torch.tensor(kmers, device=dev)
+    ln = torch.full((N_QUERIES,), K, dtype=torch.int32, device=dev)
+    holds = {
+        "packed_6^8": hold_query(torch, f"packed + 6^8, 1M x {K}-mers at {packed.n} symbols",
+                                 "packed", (packed.table, packed.starts, packed.n, km, ln,
+                                            cache8, 8), packed),
+        "pair_6^9": hold_query(torch, f"pair + 6^9, 1M x {K}-mers at {pair.n} symbols", "pair",
+                               (pair.table2, pair.starts, pair.dmat, pair.n, km, ln, cache9, 9),
+                               packed)}
+    del km, ln, pair, cache9
 
     # RleBWT from disk: the tier policy picks pair + 6^9 by itself
     npy = os.path.join(d, "bwt505.npy")
@@ -982,20 +1132,27 @@ def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8,
     t0 = time.perf_counter()
     got = bwt.count_kmers(kmers)
     first_s = time.perf_counter() - t0
-    launches = path_counts()
+    first = path_counts()
     above = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
     tier_ok = bwt._pair_index is not None and bwt._cache_k == 9 and bwt._run_index is None
     log(f"[tiers] RleBWT.load_numpy_file {load_s:.3f} s (npy read + the host pass over "
         f"the RLE bytes); first count_kmers {first_s:.3f} s (device decode, index, pair "
         f"index, 6^9 cache, 1M counts); tier pair + 6^{bwt._cache_k}; merge kernel "
-        f"launches {launches['merge_insert']}, {lf_line(launches)}; its peak "
+        f"launches {first['merge_insert']}, {lf_line(first)}; its peak "
         f"{above / 2**30:.3f} GiB above what stays resident (the headroom at 505M)")
     check(tier_ok, "RleBWT did not pick pair + 6^9 at 505M")
-    check(launches["merge_insert"] >= 1, "RleBWT's load launched no merge kernel")
+    check(first["merge_insert"] >= 1, "RleBWT's load launched no merge kernel")
     check(np.array_equal(got, counts), "RleBWT counts != phase 6 counts")
     s, got = median_s(torch, lambda: bwt.count_kmers(kmers))
+    launches = path_counts()
+    # --- end of the RleBWT query path (load, first batch, three warm ones) ---
     check(np.array_equal(got, counts), "RleBWT counts != phase 6 counts")
-    log(f"[tiers] RleBWT.count_kmers warm: median {s:.4f} s -> {N_QUERIES / s:.0f} q/s")
+    check((first["kmer_counts_pair"], launches["kmer_counts_pair"],
+           launches["kmer_ranges_packed"]) == (1, 4, 0),
+          f"RleBWT's pair + 6^9 batches: first {lf_line(first)}; after three warm "
+          f"{lf_line(launches)}")
+    log(f"[tiers] RleBWT.count_kmers warm: median {s:.4f} s -> {N_QUERIES / s:.0f} q/s; "
+        f"one kmer_counts_pair launch a batch ({launches['kmer_counts_pair']} in the path)")
     pack = os.path.join(d, "bwt505.pack")
     save_s, _ = timed(lambda: bwt.save_query_indexes(pack))
     del bwt
@@ -1008,23 +1165,31 @@ def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8,
     log(f"[tiers] query pack {os.path.getsize(pack)} bytes: save {save_s:.3f} s, "
         f"load {pack_s:.3f} s (after the npy load); counts equal phase 6")
 
-    # correction: one substitution in each of 10,000 reads
-    rng = np.random.default_rng(0xC0EC7)
-    orig = reads[:N_CORRECT].copy()
-    bad = orig.copy()
-    dna = np.array([1, 2, 3, 5], np.uint8)
-    for i in range(N_CORRECT):
-        p = rng.choice(np.flatnonzero(orig[i] != 4))
-        bad[i, p] = rng.choice(dna[dna != orig[i, p]])
+    # --- the correction path: one substitution in each of 10,000 reads; counts
+    # reset just before, read just after (its pair batches kept) ---
+    orig, bad = substituted_reads(np, reads)
+    torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
-    fixed, n_fixed = correct_reads(fresh, bad, k=K, tau=2)
+    with capture(pair_rank, "_count_kmers_pair_impl", clone=False) as batches:
+        fixed, n_fixed = correct_reads(fresh, bad, k=K, tau=2)
     corr_s = time.perf_counter() - t0
+    correct = path_counts()
+    # --- end of the correction path ---
     n_equal = int((fixed == orig).all(axis=1).sum())
     log(f"[tiers] correct_reads(k={K}, tau=2) of {N_CORRECT} reads: {corr_s:.3f} s -> "
         f"{N_CORRECT / corr_s:.0f} reads/s; {n_fixed} bases fixed, {n_equal} reads equal "
-        "to their originals")
+        f"to their originals; {lf_line(correct)}")
     check(n_equal == N_CORRECT, "a corrected read differs from its original")
-    return launches
+    check(correct["kmer_counts_pair"] == len(batches) > 0 and correct["kmer_ranges_packed"] == 0,
+          f"the correction path: {len(batches)} pair batches kept, {lf_line(correct)}")
+    holds["correct"] = {"batches": len(batches), "max_abs_err": max(
+        agree(torch, f"correction's pair batch {i} ({b[4].shape[0]} x {b[4].shape[1]}-mers, "
+              f"6^{b[7]} cache)", query.kmer_counts_pair, pair_rank.kmer_counts_pair_plain, b,
+              tag="query")
+        for i, b in enumerate(batches))}
+    del batches
+    return launches, correct, holds
 
 
 def phase_merge_parts(torch, np, dev, reads, lengths, idx):
@@ -1393,7 +1558,9 @@ def phase_budget(torch, np, dev):
     and held against the twin), RLE bytes in memory, ``RleBWT`` with
     its default budget (the card's) must pick pair + 6^9 and with
     ``MSBWT_TPU_DEVICE_BUDGET_GB=12`` the run tier; 1M counts of each ==
-    the packed tier's; each tier's peak above what stays resident."""
+    the packed tier's; each tier's peak above what stays resident. After
+    the card-budget batches, ``kmer_counts_pair`` is held against its twin
+    on that engine's pair table, 6^9 cache and 1M k-mers (``hold_query``)."""
     from rust_msbwt_tpu_torch.models.rle_bwt import RleBWT
     from rust_msbwt_tpu_torch.ops import bcr
     from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
@@ -1451,11 +1618,21 @@ def phase_budget(torch, np, dev):
         if budget_env is None:
             launches = path_counts()
             # --- end of the 1.515G path ---
-            check(launches["lf_stage"] == READ_LEN and launches["lf_walk"] == 0,
+            check(launches["lf_stage"] == READ_LEN and launches["lf_walk"] == 0
+                  and launches["kmer_counts_pair"] == 2,
                   f"the 1.515G path: {lf_line(launches)}")
-            want = count_kmers_packed(bwt.packed_index, kmers)
             check(tier == "pair" and bwt._cache_k == 9,
                   f"RleBWT at 1.515G with the card's budget picked {tier} + 6^{bwt._cache_k}")
+            # the pair kernel against its twin on this engine's own tensors
+            pidx, packed = bwt._pair_index, bwt.packed_index
+            km = torch.tensor(kmers, device=dev)
+            ln = torch.full((N_QUERIES,), K, dtype=torch.int32, device=dev)
+            pair_hold = hold_query(
+                torch, f"pair + 6^9, 1M x {K}-mers at {pidx.n} symbols", "pair",
+                (pidx.table2, pidx.starts, pidx.dmat, pidx.n, km, ln, bwt._kmer_cache,
+                 bwt._cache_k), packed, reps=10, plain_reps=2)
+            want = count_kmers_packed(packed, kmers)
+            del pidx, packed, km, ln
         else:
             check(tier == "run", f"RleBWT at 1.515G under a 12 GB budget picked {tier}")
         check(np.array_equal(got, want) and np.array_equal(got2, want),
@@ -1468,7 +1645,7 @@ def phase_budget(torch, np, dev):
             "the packed tier's")
         del bwt
         torch.cuda.empty_cache()
-    return launches, tiers, stage
+    return launches, tiers, stage, pair_hold
 
 
 def main(argv=None) -> int:
@@ -1511,6 +1688,7 @@ def main(argv=None) -> int:
 
     max_err, times = phase_kernel(torch, dev, args.parent)
     phase_lf_edges(torch, dev)
+    phase_query_edges(torch, dev)
     phase_golden("cuda")
     phase_10k(np, dev)
     phase_extend_10k(torch, np, dev)
@@ -1522,10 +1700,11 @@ def main(argv=None) -> int:
         ckpt = os.path.join(d, "stream_ckpt.npy")
         stream = phase_stream(torch, np, dev, reads, lengths, idx, ckpt)
         load_extend, walk = phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt)
-    recovery, walks = phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts)
+    recovery, walks, locate_ranges = phase_recovery(torch, np, dev, reads, idx, packed, kmers,
+                                                    counts)
     with tempfile.TemporaryDirectory() as d:
-        launches_query = phase_query_tiers(torch, np, dev, reads, idx, packed, kmers,
-                                           counts, cache8, rle, d)
+        launches_query, correct, query_holds = phase_query_tiers(
+            torch, np, dev, reads, idx, packed, kmers, counts, cache8, rle, d)
     del cache8, rle, packed
     parts = phase_merge_parts(torch, np, dev, reads, lengths, idx)
     torch.cuda.empty_cache()
@@ -1539,15 +1718,29 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     long_r1, long_r2, long_ext, _, long_stages, long_walk_err = phase_long(torch, np, dev)
     torch.cuda.empty_cache()
-    budget, _, big_stage = phase_budget(torch, np, dev)
+    budget, _, big_stage, big_pair = phase_budget(torch, np, dev)
+    query_holds.update({"1515m_pair_6^9": big_pair, "recovery_locate": locate_ranges})
 
     paths = {"": main_path, "_stream": stream, "_load_extend": load_extend,
-             "_recovery": recovery, "_query": launches_query, "_merge_parts": parts,
+             "_recovery": recovery, "_query": launches_query, "_correct": correct,
+             "_merge_parts": parts,
              "_distributed": launches_dist, "_long_radix1": long_r1,
              "_long_radix2": long_r2, "_long_extend": long_ext, "_budget": budget}
 
     def launches_of(kernel, skip=()):
         return {f"launches{k}": c[kernel] for k, c in paths.items() if k not in skip}
+
+    def query_entry(name, source_line, hold_keys, **launches):
+        # the first hold is the timed 505M batch; the others are holds at other paths' shapes
+        res = query_holds[hold_keys[0]]
+        return {"name": name, "route": "cuda",
+                "source": "rust_msbwt_tpu_torch/csrc/query.cu",
+                "replaces": source_line, **launches,
+                "max_abs_err": max(query_holds[k]["max_abs_err"] for k in hold_keys),
+                **{k: res[k] for k in ("ms", "plain_ms", "bound_ms")},
+                "bound_by": "bytes", "library_ms": None, "access_ms": res["access_ms"],
+                "rows": res["rows"], "row_reads": res["row_reads"],
+                "holds": {k: query_holds[k] for k in hold_keys[1:]}}
 
     columns = {"505m_col90": stage, "long_radix1_col1000": long_stages[1],
                "long_radix2_col1000": long_stages[2], "1515m_col90": big_stage}
@@ -1558,7 +1751,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "rust_msbwt_tpu_torch/csrc/merge_insert.cu",
         "replaces": "rust_msbwt_tpu/ops/pallas_merge.py:159",
-        **launches_of("merge_insert", skip=("_recovery",)),
+        **launches_of("merge_insert", skip=("_recovery", "_correct")),
         "max_abs_err": max_err,
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],
@@ -1572,7 +1765,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "rust_msbwt_tpu_torch/csrc/lf.cu",
         "replaces": "rust_msbwt_tpu/ops/bcr.py:444",
-        **launches_of("lf_stage", skip=("_recovery",)),
+        **launches_of("lf_stage", skip=("_recovery", "_correct")),
         "max_abs_err": max(c["max_abs_err"] for c in columns.values()),
         "ms": stage["ms"],
         "plain_ms": stage["plain_ms"],
@@ -1598,7 +1791,14 @@ def main(argv=None) -> int:
         "terminator_walk_steps": walk["steps"],
         "walks": {name: {k: w[k] for k in ("ms", "plain_ms", "bound_ms")}
                   for name, w in walks.items()},
-    }]}))
+    }, query_entry("kmer_ranges_packed", "rust_msbwt_tpu/ops/packed_rank.py:122",
+                   ("packed_6^8", "recovery_locate"),
+                   **launches_of("kmer_ranges_packed", skip=("_distributed",))),
+       # its main path is RleBWT's query path (the tier it picks at 505M)
+       query_entry("kmer_counts_pair", "rust_msbwt_tpu/ops/pair_rank.py:363",
+                   ("pair_6^9", "1515m_pair_6^9", "correct"),
+                   launches=launches_query["kmer_counts_pair"],
+                   **launches_of("kmer_counts_pair", skip=("", "_query", "_distributed")))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

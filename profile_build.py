@@ -3,6 +3,7 @@
 NVIDIA card.
 
     python3 profile_build.py [--reps 4] [--top 25] [--no-profile] [--sweep-only]
+                             [--queries]
 
 Uses ``chip_smoke.py``'s main-path read set (5M x 100 bp reads from a
 random 4.6 Mbase genome, seed 0xEC011; 1M 21-mer queries). The CUDA context
@@ -31,6 +32,14 @@ timed. Then:
    the top device kernels and copies, and for stage loops the device events
    a column. The walk's share of the stage loop
    and of the entry point comes from the unprofiled walls of this process.
+   Each query batch also reports the device time and events of the query
+   kernels (``kmer_ranges_packed`` / ``kmer_counts_pair``), and its host
+   front split apart (median of three, each part fenced): the alphabet
+   check, the upload of the k-mers and lengths, the search on the card,
+   the download and the int64 cast, beside three walls of the entry point.
+   Then ``chip_smoke.py`` phase 10's correction (10,000 reads with one
+   substitution each, ``correct_reads(k=21, tau=2)``) through pair + 6^9:
+   its wall and the share of it spent in the batched counts.
 3. Unless ``--no-profile``: one round of ``chip_smoke.py`` phase 11a's
    doubling merge (``ops.merge._doubling_round``: the sorted reads in four
    groups, each built on the card, merged at 505M symbols), from the state
@@ -45,6 +54,11 @@ timed. Then:
    corrections (argsort + sort, searchsorted) timed apart in the loop, and
    the argsort, the sort and the searchsorted apart in their functions
    alone at the same N.
+
+``--queries`` runs one build and step 2's two query batches only (with
+``--reps 1``, about a minute): the run PERF.md's query numbers come from,
+in turns with the parent commit's own ``profile_build.py --reps 1`` from a
+``git archive`` of it, whose step 2 profiles the same two batches.
 
 Host timers wrap ``torch.cuda.synchronize()`` (``utils.profiling.timed``).
 The card's name and power limit are printed first; the last line is one
@@ -124,6 +138,124 @@ def profiled(torch, fn, label: str, top: int, groups: dict | None = None,
         out[f"{name}_share"] = part / dev_s if dev_s else None
         log(f"[{label}] {name} kernels: {part:.4f} s in {n_part} events, "
             f"{100 * part / dev_s if dev_s else 0:.1f}% of the device time")
+    return out
+
+
+QUERY_KERNELS = {"query": lambda k: "kmer_ranges_packed" in k or "kmer_counts_pair" in k}
+
+
+def query_split(torch, np, dev, impl, kmers, cache, cache_k, entry, reps: int = 3) -> dict:
+    """``ops.rank.count_batch``'s parts for one batch of full-length
+    k-mers, each fenced and timed apart (median of ``reps``): the alphabet
+    check, the upload of the k-mers and lengths, ``impl`` (the search on the
+    card), the download and the int64 cast; and ``reps`` walls of the entry
+    point ``entry()``."""
+    from statistics import median
+
+    from rust_msbwt_tpu_torch.ops.alphabet import VC_LEN
+    from rust_msbwt_tpu_torch.utils.checks import validate_kmers
+    from rust_msbwt_tpu_torch.utils.profiling import timed
+
+    lengths = np.full(kmers.shape[0], kmers.shape[1], np.int32)
+    parts = {k: [] for k in ("check", "upload", "search", "download", "int64", "entry")}
+    for _ in range(reps):
+        parts["check"].append(timed(lambda: (bool(np.all(kmers < VC_LEN)),
+                                             validate_kmers(kmers, lengths)))[0])
+        s, (km, ln) = timed(lambda: (torch.tensor(kmers, device=dev),
+                                     torch.tensor(lengths, device=dev)))
+        parts["upload"].append(s)
+        s, out = timed(lambda: impl(km, ln, cache, cache_k))
+        parts["search"].append(s)
+        s, host = timed(lambda: out.cpu().numpy())
+        parts["download"].append(s)
+        parts["int64"].append(timed(lambda: host.astype(np.int64))[0])
+        parts["entry"].append(timed(entry)[0])
+    return {k: median(v) for k, v in parts.items()} | {"runs": parts}
+
+
+def profile_correction(np, reads, count) -> dict:
+    """``correct_reads(k=21, tau=2)`` of ``chip_smoke.py`` phase 10's
+    10,000 reads with one substitution each, through an engine whose
+    ``count_kmers`` is ``count(kmers, lengths)``: the wall, and the calls,
+    k-mers and seconds spent in ``count`` (the batched searches, their host
+    front included; the rest is the corrector's own host work)."""
+    from chip_smoke import K, substituted_reads
+    from rust_msbwt_tpu_torch.apps.correct import correct_reads
+    from rust_msbwt_tpu_torch.models.core import BWTBase
+    from rust_msbwt_tpu_torch.utils.profiling import timed
+
+    calls = []
+
+    class Engine(BWTBase):
+        def count_kmers(self, kmers, lengths=None):
+            s, out = timed(count, kmers, lengths)
+            calls.append((s, len(kmers)))
+            return out
+
+    orig, bad = substituted_reads(np, reads)
+    wall, (fixed, _) = timed(correct_reads, Engine(), bad, K, 2)
+    count_s = sum(s for s, _ in calls)
+    out = {"wall_s": wall, "reads_per_s": len(bad) / wall, "count_calls": len(calls),
+           "count_kmers": sum(n for _, n in calls), "count_s": count_s,
+           "count_share": count_s / wall,
+           "equal_reads": int((fixed == orig).all(axis=1).sum())}
+    log(f"[correction] correct_reads(k={K}, tau=2) of {len(bad)} reads: {wall:.3f} s -> "
+        f"{out['reads_per_s']:.0f} reads/s; {len(calls)} count_kmers calls of "
+        f"{out['count_kmers']} k-mers in all, {count_s:.3f} s ({out['count_share']:.1%} of "
+        f"the wall); {out['equal_reads']} reads equal to their originals")
+    return out
+
+
+def profile_queries(torch, np, dev, idx, packed, kmers, top: int, reads=None) -> dict:
+    """Step 2's query batches: 1M 21-mers through ``count_kmers_packed``
+    with a 6^8 cache and through ``count_kmers_pair`` with a 6^9 cache (the
+    pair index build profiled, the cache build timed first), each warmed,
+    profiled and split (``query_split``); with ``reads``, the correction
+    of 10,000 of them through pair + 6^9 (``profile_correction``)."""
+    from rust_msbwt_tpu_torch.ops.packed_rank import _count_kmers_packed_impl, count_kmers_packed
+    from rust_msbwt_tpu_torch.ops.pair_rank import (
+        _count_kmers_pair_impl,
+        build_pair_index,
+        count_kmers_pair,
+    )
+    from rust_msbwt_tpu_torch.ops.rank import build_kmer_cache
+
+    out = {}
+    cache = build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 8)
+    count_kmers_packed(packed, kmers, cache=cache, cache_k=8)  # warm-up
+    out["query"] = profiled(
+        torch, lambda: count_kmers_packed(packed, kmers, cache=cache, cache_k=8),
+        "1M queries", top, QUERY_KERNELS)
+    out["query"]["split"] = query_split(
+        torch, np, dev,
+        lambda km, ln, c, ck: _count_kmers_packed_impl(packed.table, packed.starts, packed.n,
+                                                       km, ln, cache=c, cache_k=ck),
+        kmers, cache, 8, lambda: count_kmers_packed(packed, kmers, cache=cache, cache_k=8))
+    del cache
+    out["pair_index"] = profiled(torch, lambda: build_pair_index(idx), "pair index build", top)
+    pair = build_pair_index(idx)
+    cache9_s = wall_time(lambda: build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 9))
+    cache9 = build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 9)
+    log(f"[setup] 6^9 cache {cache9_s:.4f} s")
+    count_kmers_pair(pair, kmers, cache=cache9, cache_k=9)  # warm-up
+    out["query_pair"] = profiled(
+        torch, lambda: count_kmers_pair(pair, kmers, cache=cache9, cache_k=9),
+        "1M queries, pair + 6^9", top, QUERY_KERNELS)
+    out["query_pair"]["cache9_s"] = cache9_s
+    out["query_pair"]["split"] = query_split(
+        torch, np, dev,
+        lambda km, ln, c, ck: _count_kmers_pair_impl(pair.table2, pair.starts, pair.dmat,
+                                                     pair.n, km, ln, cache=c, cache_k=ck),
+        kmers, cache9, 9, lambda: count_kmers_pair(pair, kmers, cache=cache9, cache_k=9))
+    if reads is not None:
+        out["correction"] = profile_correction(
+            np, reads, lambda km, ln: count_kmers_pair(pair, km, ln, cache=cache9, cache_k=9))
+    for key, label in (("query", "1M queries"), ("query_pair", "1M queries, pair + 6^9")):
+        sp = out[key]["split"]
+        log(f"[{label}] host split (median of 3): alphabet check {sp['check'] * 1e3:.3f} ms, "
+            f"upload {sp['upload'] * 1e3:.3f} ms, search {sp['search'] * 1e3:.3f} ms, "
+            f"download {sp['download'] * 1e3:.3f} ms, int64 cast {sp['int64'] * 1e3:.3f} ms; "
+            f"entry point {sp['entry'] * 1e3:.3f} ms -> {kmers.shape[0] / sp['entry']:.0f} q/s")
     return out
 
 
@@ -250,6 +382,8 @@ def main(argv=None) -> int:
                     help="skip the torch.profiler runs")
     ap.add_argument("--sweep-only", action="store_true",
                     help="run only step 4, the radix sweep")
+    ap.add_argument("--queries", action="store_true",
+                    help="run one build and step 2's query batches only")
     args = ap.parse_args(argv)
     if args.reps < 1:
         ap.error("--reps must be at least 1")
@@ -272,9 +406,6 @@ def main(argv=None) -> int:
     )
     from rust_msbwt_tpu_torch.ops.lf import lf_walk_cyclic
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
-    from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
-    from rust_msbwt_tpu_torch.ops.pair_rank import build_pair_index, count_kmers_pair
-    from rust_msbwt_tpu_torch.ops.rank import build_kmer_cache
 
     smi = card_line()
     log(smi)
@@ -319,31 +450,16 @@ def main(argv=None) -> int:
             f"Mbases/s), peak {peak / 2**30:.2f} GiB")
 
     result = {"card": smi, "symbols": idx.n, "reps": reps}
-    if not args.no_profile:
+    if args.queries:
+        result.update(profile_queries(torch, np, dev, idx, packed, kmers, args.top, reads))
+    elif not args.no_profile:
         p = _prepare_build(reads, lengths, True)
         result["build_loop"] = profiled(
             torch, lambda: _build_device(p, dev, merge_insert), "build loop", args.top,
             columns=READ_LEN)
         del p
-        cache = build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 8)
-        count_kmers_packed(packed, kmers, cache=cache, cache_k=8)  # warm-up
-        result["query"] = profiled(
-            torch, lambda: count_kmers_packed(packed, kmers, cache=cache, cache_k=8),
-            "1M queries", args.top)
-        del cache
-        result["pair_index"] = profiled(torch, lambda: build_pair_index(idx),
-                                        "pair index build", args.top)
-        pair = build_pair_index(idx)
-        cache9_s = wall_time(lambda: build_kmer_cache(idx.bwt, idx.occ, idx.starts,
-                                                             idx.n, 9))
-        cache9 = build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 9)
-        log(f"[setup] 6^9 cache {cache9_s:.4f} s")
-        count_kmers_pair(pair, kmers, cache=cache9, cache_k=9)  # warm-up
-        result["query_pair"] = profiled(
-            torch, lambda: count_kmers_pair(pair, kmers, cache=cache9, cache_k=9),
-            "1M queries, pair + 6^9", args.top)
-        result["query_pair"]["cache9_s"] = cache9_s
-        del pair, cache9, idx, packed
+        result.update(profile_queries(torch, np, dev, idx, packed, kmers, args.top, reads))
+        del idx, packed
         # the streamed build's last batch: 1M reads onto the first 4M's BWT
         n0_reads = N_READS - 1_000_000
         base, bpacked = build_msbwt_with_index(reads[:n0_reads], lengths[:n0_reads],

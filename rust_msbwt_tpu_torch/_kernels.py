@@ -10,7 +10,8 @@ library with a plain C interface, bound with ``ctypes``:
          -o _build/libmsbwt_kernels.so _build/*.o
 
 The library goes to the git-ignored ``rust_msbwt_tpu_torch/_build/``. It is
-built at first use and rebuilt when a source is newer than it. Nothing here
+built at first use and rebuilt when a source or a shared header
+(``csrc/*.cuh``) is newer than it. Nothing here
 runs at import time: a machine without ``nvcc`` imports every module and
 only fails when a kernel is asked for.
 """
@@ -34,7 +35,14 @@ _lib = None
 
 
 def _sources() -> list[str]:
+    """The sources nvcc compiles (``csrc/*.cu``)."""
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _inputs() -> list[str]:
+    """Every file the library is built from: the sources and the headers
+    they include (``csrc/*.cuh``)."""
+    return _sources() + sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -53,11 +61,11 @@ def build() -> str:
     Returns the compiler's output (``-Xptxas -v``: registers, shared memory
     and spills of every kernel), or ``""`` when the library was up to date.
     """
-    srcs = _sources()
     if os.path.isfile(LIB_PATH) and all(
-        os.path.getmtime(LIB_PATH) >= os.path.getmtime(s) for s in srcs
+        os.path.getmtime(LIB_PATH) >= os.path.getmtime(s) for s in _inputs()
     ):
         return ""
+    srcs = _sources()
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o") for s in srcs]
@@ -107,6 +115,8 @@ def load():
                 ("msbwt_lf_walk_lengths", [vp] * 5 + [i64, i64, vp]),
                 ("msbwt_lf_walk_extract", [vp] * 6 + [i64, i32, vp]),
                 ("msbwt_lf_walk_locate", [vp] * 6 + [i64, i64, i32, vp]),
+                ("msbwt_kmer_ranges_packed", [vp] * 8 + [i64, i32, i32, i32, vp]),
+                ("msbwt_kmer_counts_pair", [vp] * 8 + [i64, i64, i32, i32, i32, vp]),
             ):
                 getattr(lib, name).restype = ctypes.c_int
                 getattr(lib, name).argtypes = args

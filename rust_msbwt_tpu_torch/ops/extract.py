@@ -95,7 +95,7 @@ def locate_kmers(index: OccIndex, kmers, n_strings: int, lengths=None,
     dev = packed.table.device
     lo, hi = _kmer_ranges_packed_impl(
         packed.table, packed.starts, packed.n,
-        torch.from_numpy(kmers).to(dev), torch.from_numpy(lengths).to(dev),
+        torch.from_numpy(np.ascontiguousarray(kmers)).to(dev), torch.from_numpy(lengths).to(dev),
     )
     lo = lo.cpu().numpy()
     counts = hi.cpu().numpy() - lo

@@ -59,15 +59,15 @@ def _bump_counts(counts, v, active):
     )
 
 
-def _device_of(table: torch.Tensor) -> torch.device | None:
+def _device_of(table: torch.Tensor, lanes: int = ROW) -> torch.device | None:
     """None for a CPU table (the plain version runs); its CUDA device after
-    checking it is a 16 B-aligned ``[rows, 32]`` int32 table."""
+    checking it is a 16 B-aligned ``[rows, lanes]`` int32 table."""
     dev = table.device
     if dev.type == "cpu":
         return None
     if dev.type != "cuda":
         raise ValueError(f"table: expected a CPU or CUDA tensor, got {dev}")
-    _check("table", table, _I32, (table.shape[0], ROW), dev, aligned=True)
+    _check("table", table, _I32, (table.shape[0], lanes), dev, aligned=True)
     return dev
 
 

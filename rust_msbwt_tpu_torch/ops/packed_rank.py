@@ -114,12 +114,13 @@ def lf_step(table: torch.Tensor, starts: torch.Tensor, sym: torch.Tensor,
     return starts[sym.long()] + rank_packed(table, sym, pos)
 
 
-def _kmer_ranges_packed_impl(table, starts, n: int, kmers: torch.Tensor,
+def kmer_ranges_packed_plain(table, starts, n: int, kmers: torch.Tensor,
                              lengths: torch.Tensor, cache: KmerCache | None = None,
                              cache_k: int = 0):
     """Backward-search every right-aligned k-mer to its BWT row range
     ``[lo, hi)``; a masked fixed-step loop replaces the reference's
-    empty-range early exit (an empty range stays empty)."""
+    empty-range early exit (an empty range stays empty). The plain twin of
+    the ``kmer_ranges_packed`` kernel (``ops.query``)."""
     B, K = kmers.shape
     lo = torch.zeros(B, dtype=_I32, device=table.device)
     hi = torch.full((B,), n, dtype=_I32, device=table.device)
@@ -135,6 +136,16 @@ def _kmer_ranges_packed_impl(table, starts, n: int, kmers: torch.Tensor,
         lo = torch.where(active, c + both[:B], lo)
         hi = torch.where(active, c + both[B:], hi)
     return lo, hi
+
+
+def _kmer_ranges_packed_impl(table, starts, n: int, kmers: torch.Tensor,
+                             lengths: torch.Tensor, cache: KmerCache | None = None,
+                             cache_k: int = 0):
+    """``[lo, hi)`` of every right-aligned k-mer: one ``kmer_ranges_packed``
+    launch on CUDA tensors, ``kmer_ranges_packed_plain`` on CPU ones."""
+    from rust_msbwt_tpu_torch.ops.query import kmer_ranges_packed
+
+    return kmer_ranges_packed(table, starts, n, kmers, lengths, cache, cache_k)
 
 
 def _count_kmers_packed_impl(table, starts, n: int, kmers, lengths, cache=None,

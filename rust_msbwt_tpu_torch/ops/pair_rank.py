@@ -194,13 +194,14 @@ def _decode_rank(row: torch.Tensor, r: torch.Tensor, code: torch.Tensor,
     return occ_base + popcount(bits).sum(1, dtype=_I32)
 
 
-def _count_kmers_pair_impl(table2, starts, dflat, n: int, kmers: torch.Tensor,
+def kmer_counts_pair_plain(table2, starts, dflat, n: int, kmers: torch.Tensor,
                            lengths: torch.Tensor, cache: KmerCache | None = None,
                            cache_k: int = 0) -> torch.Tensor:
     """Backward search consuming TWO symbols per round; a query with one
     symbol left consumes it from the same gathered row (3-plane decode).
     Each round gathers the rows of ``lo`` and ``hi`` together; a decode no
-    query of the batch needs in a round is skipped."""
+    query of the batch needs in a round is skipped. The plain twin of the
+    ``kmer_counts_pair`` kernel (``ops.query``)."""
     B, K = kmers.shape
     nb = table2.shape[0]
     if table2.shape[1] != LANES:
@@ -238,6 +239,17 @@ def _count_kmers_pair_impl(table2, starts, dflat, n: int, kmers: torch.Tensor,
             new_hi = torch.where(both, n2[B:], new_hi)
         lo, hi = new_lo, new_hi
     return hi - lo
+
+
+def _count_kmers_pair_impl(table2, starts, dflat, n: int, kmers: torch.Tensor,
+                           lengths: torch.Tensor, cache: KmerCache | None = None,
+                           cache_k: int = 0) -> torch.Tensor:
+    """int32 counts of right-aligned k-mers through the pair index: one
+    ``kmer_counts_pair`` launch on CUDA tensors, ``kmer_counts_pair_plain``
+    on CPU ones."""
+    from rust_msbwt_tpu_torch.ops.query import kmer_counts_pair
+
+    return kmer_counts_pair(table2, starts, dflat, n, kmers, lengths, cache, cache_k)
 
 
 def count_kmers_pair(pidx: PairIndex, kmers, lengths=None, cache=None,

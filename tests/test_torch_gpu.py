@@ -8,8 +8,12 @@ radix-2 step against the CPU's; the profiling timers and trace, and the
 session-health memory probe; the LF-step kernels (``lf_stage``, the four
 ``lf_walk`` walks) against their plain twins on the same CUDA tensors at
 edge shapes, and builds, extends, streamed builds, extract and locate
-through them against the CPU's plain path. Bit-exact throughout (tolerance
-0: every output is an integer).
+through them against the CPU's plain path; the query kernels
+(``kmer_ranges_packed``, ``kmer_counts_pair``) against their plain twins
+on the same CUDA tensors at edge shapes (B = 1, B = 0, every query absent,
+n % 128 == 0, caches 6^8 / 6^9 / 6^11, 1.1M queries), ``count_batch``'s
+split of short queries, and bad inputs refused. Bit-exact throughout
+(tolerance 0: every output is an integer).
 
 Marked ``gpu``; without a card every test skips (the decision is made in a
 fixture, never at import time). This file imports no jax, so it runs on a
@@ -17,6 +21,8 @@ machine with only torch:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -681,3 +687,133 @@ def test_extract_locate_through_lf_kernels_match_cpu(cuda):
     (g_k, h_k), (g_c, h_c) = out
     assert all(np.array_equal(a, b) for a, b in zip(g_k, g_c))
     assert all(np.array_equal(a, b) for a, b in zip(h_k, h_c))
+
+
+# --- the query kernels (ops/query.py, csrc/query.cu) ------------------------
+
+QUERY_KINDS = ["one", "empty", "absent", "aligned", "ragged"]
+# (kind, cache depth) of the card cases: the kinds, then cached batches and
+# a batch of 1.1M queries
+QUERY_CASES = [(k, 0) for k in QUERY_KINDS] + [("ragged", 8), ("ragged", 9), ("ragged", 11),
+                                               ("grid", 8)]
+
+
+@functools.lru_cache(maxsize=4)
+def _query_bwt(n_reads, read_len, seed):
+    """A BWT of ``n_reads`` x ``read_len`` reads from a random 2,000-base
+    genome (built on the CPU), and the reads."""
+    r = np.random.default_rng(seed)
+    genome = r.integers(1, 6, 2000).astype(np.uint8)
+    st = r.integers(0, genome.size - read_len + 1, n_reads)
+    reads = genome[st[:, None] + np.arange(read_len)[None, :]]
+    return build_msbwt(reads, np.full(n_reads, read_len, np.int32), device="cpu"), reads
+
+
+def query_case(kind, cache_k=0, B=None):
+    """One query batch from a seed (also run on the CPU by
+    tests/test_torch_query.py against the JAX package, and on the card by
+    chip_smoke.py): a BWT and B right-aligned 21-mers with their lengths.
+    ``one``: B = 1; ``empty``: B = 0; ``absent``: random 21-mers, none in
+    the reads, so every range empties after a few steps; ``aligned``: n =
+    25,600 (256 reads of 99 bp, n % 128 == 0), so every query's first step
+    ranks at hi == n, and lengths 0..21; ``ragged``: n = 25,755 (255 x 100
+    bp), lengths 0..21, a tenth of the queries random; ``grid``: ``ragged``
+    at B = 1,100,003. With ``cache_k`` every length is at least cache_k."""
+    K = 21
+    dec, reads = _query_bwt(256, 99, 1) if kind == "aligned" else _query_bwt(255, 100, 2)
+    r = np.random.default_rng(len(kind) + 100 * cache_k)
+    if B is None:
+        B = {"one": 1, "empty": 0, "grid": 1_100_003}.get(kind, 3000)
+    rows, offs = r.integers(0, reads.shape[0], B), r.integers(0, reads.shape[1] - K + 1, B)
+    kmers = reads[rows[:, None], offs[:, None] + np.arange(K)[None, :]]
+    n_random = B if kind == "absent" else B // 10
+    kmers[B - n_random:] = r.integers(1, 6, (n_random, K))
+    lengths = r.integers(cache_k, K + 1, B).astype(np.int32)
+    if kind in ("one", "absent"):
+        lengths[:] = K
+    kmers[np.arange(K)[None, :] < (K - lengths)[:, None]] = 0
+    return dict(dec=dec, kmers=kmers, lengths=lengths, cache_k=cache_k)
+
+
+def query_calls(case, dev, cache=None):
+    """Both query kernels' calls on a case as ``{tier: (wrapper, plain,
+    args)}``, the arguments on ``dev``. The prefix cache of the case's
+    depth is ``cache``, or built on ``dev`` through the occurrence index."""
+    from rust_msbwt_tpu_torch.ops import packed_rank, pair_rank, query
+
+    idx, packed = index_from_symbols(torch.from_numpy(case["dec"]).to(dev))
+    pair = build_pair_index(idx)
+    ck = case["cache_k"]
+    if ck and cache is None:
+        cache = rank.build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, ck)
+    km = torch.from_numpy(case["kmers"]).to(dev)
+    ln = torch.from_numpy(case["lengths"]).to(dev)
+    return {"packed": (query.kmer_ranges_packed, packed_rank.kmer_ranges_packed_plain,
+                       (packed.table, packed.starts, packed.n, km, ln, cache, ck)),
+            "pair": (query.kmer_counts_pair, pair_rank.kmer_counts_pair_plain,
+                     (pair.table2, pair.starts, pair.dmat, pair.n, km, ln, cache, ck))}
+
+
+@pytest.mark.parametrize("kind,cache_k", QUERY_CASES)
+def test_query_kernels_match_plain(cuda, kind, cache_k):
+    """Each tier's batch through its kernel and through its plain twin on
+    the same CUDA tensors: equal (lo and hi for the packed tier, the
+    counts for the pair tier), one launch (none for B = 0)."""
+    case = query_case(kind, cache_k)
+    B = case["kmers"].shape[0]
+    for tier, (wrapper, plain, args) in query_calls(case, cuda).items():
+        before = wrapper.launches
+        got, want = _as_list(wrapper(*args)), _as_list(plain(*args))
+        assert wrapper.launches == before + (1 if B else 0), tier
+        assert [g.dtype for g in got] == [w.dtype for w in want] == [torch.int32] * len(got)
+        assert all(g.shape == (B,) and torch.equal(g, w) for g, w in zip(got, want)), tier
+        if kind == "absent":
+            assert not bool((got[-1] - got[0] if tier == "packed" else got[0]).any())
+
+
+@pytest.mark.parametrize("tier", ["packed", "pair"])
+def test_count_batch_splits_short_queries(cuda, tier):
+    """``count_batch`` with a 6^8 cache and lengths 0..21: the queries
+    shorter than 8 are one more launch; the counts equal the CPU's."""
+    from rust_msbwt_tpu_torch.ops import query
+    from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
+
+    case = query_case("ragged")
+    kmers, lengths = case["kmers"], case["lengths"]
+    assert (lengths < 8).any() and (lengths >= 8).any()
+    counts = []
+    for dev in (cuda, "cpu"):
+        idx, packed = index_from_symbols(torch.from_numpy(case["dec"]).to(dev))
+        cache = rank.build_kmer_cache(idx.bwt, idx.occ, idx.starts, idx.n, 8)
+        wrapper = query.kmer_ranges_packed if tier == "packed" else query.kmer_counts_pair
+        before = wrapper.launches
+        counts.append(count_kmers_packed(packed, kmers, lengths, cache=cache, cache_k=8)
+                      if tier == "packed" else
+                      count_kmers_pair(build_pair_index(idx), kmers, lengths, cache=cache,
+                                       cache_k=8))
+        assert wrapper.launches - before == (2 if dev == cuda else 0)
+    assert np.array_equal(counts[0], counts[1])
+
+
+def test_query_kernels_reject_bad_input(cuda):
+    """Wrong dtypes, a table off a 16-byte boundary, a tensor on another
+    device and a cache of the wrong depth are refused before any launch."""
+    calls = query_calls(query_case("ragged", B=100), cuda)
+    for tier, (wrapper, _, args) in calls.items():
+        args = list(args)
+        k = 3 if tier == "packed" else 4  # kmers; lengths follow
+        tab = args[0]
+        flat = torch.empty(tab.numel() + 4, dtype=torch.int32, device=cuda)
+        misaligned = flat[1: 1 + tab.numel()].view(tab.shape)
+        misaligned.copy_(tab)
+        bad = [(TypeError, {k: args[k].long()}), (TypeError, {k + 1: args[k + 1].long()}),
+               (ValueError, {0: misaligned}), (ValueError, {k + 1: args[k + 1].cpu()}),
+               (ValueError, {k: args[k][:, 1:].contiguous()[:50]}),
+               (ValueError, {k + 2: rank.KmerCache(args[0][:6, 0].clone(),
+                                                   args[0][:6, 0].clone()),
+                             k + 3: 2})]
+        before = wrapper.launches
+        for exc, change in bad:
+            with pytest.raises(exc):
+                wrapper(*[change.get(i, a) for i, a in enumerate(args)])
+        assert wrapper.launches == before

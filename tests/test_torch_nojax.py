@@ -25,7 +25,7 @@ for name in ("ops.extract", "utils.streaming", "cli.extract", "ops.pair_rank",
              "cli.convert", "ops.merge", "utils.oracle", "parallel.mesh",
              "parallel.sharded_merge", "parallel.doubling_merge", "parallel.sharded_build",
              "parallel.sharded_index", "parallel.partitioned", "parallel.multihost",
-             "utils.profiling", "ops.lf"):
+             "utils.profiling", "ops.lf", "ops.query"):
     assert pkg.__name__ + "." + name in names, name
 
 from rust_msbwt_tpu_torch.cli.build import main
