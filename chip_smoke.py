@@ -26,7 +26,8 @@ Phases:
      ``tests/test_torch_gpu.py`` and at one 505M-symbol pass with 5M
      inserts; times both (the kernel's prep included) against the pass's
      byte bound; with ``--parent DIR`` (a ``git archive`` of the parent
-     commit) also the parent's Form 1 prep + kernel, in turns
+     commit) also the parent's own merge pass (its kernel library, built
+     from its sources, called by the Form 2 contract), in turns
   3b. the LF-step kernels against their plain twins on the card, exact:
      ``lf_stage`` at the edge shapes of ``tests/test_torch_gpu.py`` (N = 1,
      every read inactive, P == n with n % 128 == 0, the last bin, ragged,
@@ -34,7 +35,9 @@ Phases:
      walk cases; the query kernels against their twins, exact, at the query
      edge shapes of ``tests/test_torch_gpu.py`` (B = 1, B = 0, every query
      absent, n % 128 == 0, ragged lengths, caches 6^8 / 6^9 / 6^11, 1.1M
-     queries), both tiers
+     queries, warps mixing early stops, full queries and tails, batch sizes
+     at the lane-group, warp and block edges), both tiers; with
+     ``--parent``, the parent's query kernels on the same tensors too, exact
   4. golden bytes: ``test_data/two_string.fa`` through the port's build CLI
      on ``cuda`` must give ``test_data/two_string.npy``
   5. 10k x 100 bp build on ``cuda``, byte-identical to the native reference
@@ -129,6 +132,15 @@ Phases:
  13. one JSON line of kernel results (``merge_insert``, ``lf_stage``,
      ``lf_walk``, ``kmer_ranges_packed``, ``kmer_counts_pair``), then
      ``{"ok": true, "device": ...}``
+
+With ``--parent DIR``, every query hold (phases 3b, 9, 10 and 12e, and the
+correction's batches) also runs the parent's query kernel, through the same
+C entry point of the parent's library, on the same card tensors: its output
+must equal this commit's kernel's, exactly; the timed holds time both in
+turns (parent, new, new, parent) and log the ratio. The merge pass of phase
+3 is timed the same way (its source is unchanged since the parent, so its
+ratio reads the noise of the turns). The ratios are logged and not checked,
+so noise cannot fail a run; the exactness is checked everywhere.
 """
 
 from __future__ import annotations
@@ -150,6 +162,7 @@ DEEP_K = 11  # the deepest prefix cache phase 10 builds
 LONG_READS, LONG_LEN, LONG_SMALL, LONG_BASE = 500_000, 1_000, 20_000, 400_000  # phase 12
 BIG_READS = 15_000_000  # phase 12e: 15M x 100 bp, 1.515G symbols
 LF_COL = 90  # phase 6b: the late column whose lf_stage inputs are kept
+PARENT = None  # --parent: the parent commit's loaded kernel library
 
 
 def log(msg: str) -> None:
@@ -482,6 +495,18 @@ def hold_query(torch, name, tier, args, packed, reps=20, plain_reps=3) -> dict:
                access_ms=by["access_bytes"] / DEFAULT_HBM_BW * 1e3)
     log(f"[query] {name}: the access model (one row a bound a step, {by['access_bytes']} B) "
         f"{res['access_ms']:.4f} ms -> {res['access_ms'] / res['ms']:.1%} of it")
+    res.update(parent_hold(torch, name, tier, kernel, [args], reps))
+    return res
+
+
+def batches_hold(torch, name, tier, kernel, batches, reps=10) -> dict:
+    """A path's kept query batches through ``kernel`` back to back, timed as
+    one between CUDA events (launches uncounted): the path's search time;
+    with ``--parent``, against the parent's kernel (``parent_hold``)."""
+    with uncounted():
+        res = {"ms": cuda_ms(lambda: [kernel(*b) for b in batches], reps)}
+    log(f"[query] {name}: {res['ms']:.4f} ms through the kernel")
+    res.update(parent_hold(torch, name, tier, kernel, batches, reps))
     return res
 
 
@@ -507,9 +532,11 @@ def merge_case(n_old, n_ins, seed, frac_active=1.0, clustered=False, extra=0):
 
 
 def load_parent_kernels(parent):
-    """The parent commit's kernel library (the Form 1 pass: ``old, ins,
-    tmap -> out, table``), built from ``parent``'s own sources into its own
-    ``_build``; None when no parent checkout is given."""
+    """The parent commit's kernel library, built from ``parent``'s own
+    sources into its own ``_build`` and loaded by its own
+    ``_kernels.load()`` (which sets its C entry points' argument types);
+    the query kernels' registers and spills of its build are logged. None
+    when no parent checkout is given."""
     import importlib.util
 
     if not parent:
@@ -518,22 +545,93 @@ def load_parent_kernels(parent):
     spec = importlib.util.spec_from_file_location("parent_kernels", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.build()
+    lines = mod.build().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and "kmer_" in line:
+            name = "kmer_ranges_packed" if "kmer_ranges_packed" in line else "kmer_counts_pair"
+            log(f"[parent] {name}: " + "; ".join(x.split(":")[-1].strip() if "Used" in x
+                                                 else x.strip() for x in lines[i + 1: i + 4]
+                                                 if "Used" in x or "spill" in x))
     return mod.load()
 
 
-def phase_kernel(torch, dev, parent=None):
+def query_call(lib, tier):
+    """A function of a query wrapper's arguments that makes the wrapper's
+    launch through ``lib``'s C entry point (``msbwt_kmer_ranges_packed`` or
+    ``msbwt_kmer_counts_pair``: the parent's library takes the same
+    arguments) and returns the wrapper's outputs."""
+    import torch
+
+    from rust_msbwt_tpu_torch.ops.query import _batch
+
+    def run(*args):
+        pair = tier == "pair"
+        if len(args) < (8 if pair else 7):  # no cache given
+            args = (*args, None, 0)
+        table, starts = args[:2]
+        n, kmers, lengths, cache, ck = args[3:] if pair else args[2:]
+        dev = table.device
+        clo, chi, ck = _batch(dev, starts, n, kmers, lengths, cache, ck)
+        B, K = kmers.shape
+        out = torch.empty((1 if pair else 2, B), dtype=torch.int32, device=dev)
+        if B:
+            ptr = [None if t is None else t.data_ptr() for t in (clo, chi)]
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = (lib.msbwt_kmer_counts_pair(
+                table.data_ptr(), starts.data_ptr(), args[2].data_ptr(), kmers.data_ptr(),
+                lengths.data_ptr(), *ptr, out[0].data_ptr(), B, table.shape[0], K, ck, n, stream)
+                if pair else lib.msbwt_kmer_ranges_packed(
+                table.data_ptr(), starts.data_ptr(), kmers.data_ptr(), lengths.data_ptr(), *ptr,
+                out[0].data_ptr(), out[1].data_ptr(), B, K, ck, n, stream))
+            check(err == 0, f"parent {tier} query kernel launch: CUDA error {err}")
+        return out[0] if pair else (out[0], out[1])
+
+    return run
+
+
+def turns(fns: dict, reps: int) -> dict:
+    """Each of ``fns`` (``"parent"``, ``"new"``) timed between CUDA events in
+    turns, parent, new, new, parent: ``{who: [ms, ms]}``."""
+    got = {who: [] for who in fns}
+    for who in ("parent", "new", "new", "parent"):
+        got[who].append(cuda_ms(fns[who], reps))
+    return got
+
+
+def parent_hold(torch, name, tier, kernel, batches, reps) -> dict:
+    """With ``--parent``: the parent's query kernel on each of ``batches``
+    (a wrapper's argument tuples) == this commit's ``kernel``, exactly;
+    then, unless ``reps`` is 0, the batches through each back to back,
+    timed in turns (launches uncounted), the ratio logged, not checked.
+    ``{}`` without a parent."""
+    if PARENT is None:
+        return {}
+    parent = query_call(PARENT, tier)
+    with uncounted():
+        for args in batches:
+            got, want = (list(x) if isinstance(x, tuple) else [x]
+                         for x in (kernel(*args), parent(*args)))
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{name}: this kernel != the parent's")
+        if not reps:
+            return {}
+        t = turns({who: lambda fn=fn: [fn(*args) for args in batches]
+                   for who, fn in (("parent", parent), ("new", kernel))}, reps)
+    res = {"parent_ms": sum(t["parent"]) / 2, "turn_ms": sum(t["new"]) / 2}
+    log(f"[query] {name}: == the parent's kernel; turns parent / new / new / parent "
+        f"{t['parent'][0]:.4f} / {t['new'][0]:.4f} / {t['new'][1]:.4f} / {t['parent'][1]:.4f} ms"
+        f" -> parent / new = {res['parent_ms'] / res['turn_ms']:.3f}")
+    return res
+
+
+def phase_kernel(torch, dev):
     """Phase 3: kernel == plain on the card, exact, at PR 1's shapes, the
     tile edge shapes and one 505M pass; times at the 505M stage shape, prep
-    included (the inputs are on the card before the timed region). With a
-    parent checkout, its Form 1 prep + kernel is timed in the same call, in
-    turns (parent, new, new, parent)."""
+    included (the inputs are on the card before the timed region). With
+    ``--parent``, the parent's pass is timed in the same call, in turns
+    (parent, new, new, parent)."""
     from rust_msbwt_tpu_torch import _kernels
-    from rust_msbwt_tpu_torch.ops.merge_insert import (
-        insert_maps,
-        merge_insert,
-        merge_insert_slots,
-    )
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert, merge_insert_slots
 
     from test_torch_gpu import EDGE_KINDS, _edge_case  # tests/ (on sys.path)
 
@@ -546,7 +644,6 @@ def phase_kernel(torch, dev, parent=None):
         *[(f"edge {k}", lambda k=k: _edge_case(k, len(k), tile)) for k in EDGE_KINDS],
         ("505M", lambda: merge_case(n_old=N_READS * READ_LEN, n_ins=N_READS, seed=5)),
     ]
-    parent_lib = load_parent_kernels(parent)
     max_err = 0
     times = {}
     for name, make in shapes:
@@ -567,17 +664,17 @@ def phase_kernel(torch, dev, parent=None):
               f"kernel != plain ({name})")
         if name == "505M":
             del new_p, tab_p
-            times.update(time_505m(torch, args, new_k, tab_k, parent_lib, insert_maps,
-                                   merge_insert, merge_insert_slots))
+            times.update(time_505m(torch, args, new_k, tab_k, merge_insert, merge_insert_slots))
         del args, new_k, tab_k
     torch.cuda.empty_cache()
     return max_err, times
 
 
-def time_505m(torch, args, new_k, tab_k, parent_lib, insert_maps, merge_insert,
-              merge_insert_slots):
-    """Times of the 505M pass: the kernel (prep included: it takes the slots),
-    the plain version, and the parent's Form 1 prep + kernel in turns."""
+def time_505m(torch, args, new_k, tab_k, merge_insert, merge_insert_slots):
+    """Times of the 505M pass: the kernel (prep included: it takes the slots)
+    and the plain version; with ``--parent``, the parent's pass by the same
+    contract (``old, q, v, active -> out, table``) through its own library,
+    equal to this one's and timed in turns (the ratio logged, not checked)."""
     from rust_msbwt_tpu_torch.utils.profiling import DEFAULT_HBM_BW
 
     old_t, q_t, v_t, a_t = args
@@ -585,33 +682,26 @@ def time_505m(torch, args, new_k, tab_k, parent_lib, insert_maps, merge_insert,
     out, tab = torch.empty_like(new_k), torch.empty_like(tab_k)
     nb = tab.shape[0] - 1
     bound_bytes = 2 * n + 6 * N + tab.numel() * 4  # old, q/v/active, new, table
-    times = {"bound_ms": bound_bytes / DEFAULT_HBM_BW * 1e3}
+    times = {"bound_ms": bound_bytes / DEFAULT_HBM_BW * 1e3, "parent_ms": None}
     new_fn = lambda: merge_insert(*args, out=out, table=tab)  # noqa: E731
-    turns = [("new", new_fn), ("new", new_fn)]
-    if parent_lib is not None:
-        ins = torch.empty(n + 1, dtype=torch.int8, device=old_t.device)
-        tmap = torch.empty(n, dtype=torch.int32, device=old_t.device)
-        scratch = torch.empty(parent_lib.msbwt_merge_insert_scratch_len(n),
+    got = {"new": [cuda_ms(new_fn, 20), cuda_ms(new_fn, 20)]}
+    if PARENT is not None:
+        scratch = torch.empty(PARENT.msbwt_merge_insert_scratch_len(n, N),
                               dtype=torch.int32, device=old_t.device)
         stream = torch.cuda.current_stream(old_t.device).cuda_stream
 
-        def parent_fn():  # PR 3's _build_device pass: insert_maps + Form 1 kernel
-            insert_maps(n, q_t, v_t, a_t, ins=ins, tmap=tmap)
-            err = parent_lib.msbwt_merge_insert(
-                old_t.data_ptr(), ins.data_ptr(), tmap.data_ptr(), out.data_ptr(),
-                tab.data_ptr(), scratch.data_ptr(), n, stream)
+        def parent_fn():
+            err = PARENT.msbwt_merge_insert(
+                old_t.data_ptr(), q_t.data_ptr(), v_t.data_ptr(), a_t.data_ptr(), out.data_ptr(),
+                tab.data_ptr(), scratch.data_ptr(), n, N, stream)
             check(err == 0, f"parent kernel launch: CUDA error {err}")
 
         parent_fn()
         torch.cuda.synchronize()
-        check(torch.equal(out, new_k) and torch.equal(tab, tab_k),
-              "parent Form 1 pass != the new pass")
-        turns = [("parent", parent_fn), *turns, ("parent", parent_fn)]
-    got = {"new": [], "parent": []}
-    for who, fn in turns:
-        got[who].append(cuda_ms(fn, 20))
+        check(torch.equal(out, new_k) and torch.equal(tab, tab_k), "the parent's pass != this one")
+        got = turns({"parent": parent_fn, "new": new_fn}, 20)
+        times["parent_ms"] = sum(got["parent"]) / 2
     times["ms"] = sum(got["new"]) / len(got["new"])
-    times["parent_ms"] = sum(got["parent"]) / 2 if got["parent"] else None
     times["plain_ms"] = cuda_ms(lambda: merge_insert_slots(*args, out=out, table=tab), 3)
     gbs = bound_bytes / (times["ms"] * 1e-3) / 1e9
     log(f"[kernel] 505M pass ({n} positions, {N} inserts, {nb} bins), prep included, "
@@ -619,12 +709,11 @@ def time_505m(torch, args, new_k, tab_k, parent_lib, insert_maps, merge_insert,
         + f" ms (mean {times['ms']:.4f}; bound {times['bound_ms']:.4f} ms for "
         f"{bound_bytes} B at 3.35 TB/s -> {times['bound_ms'] / times['ms']:.1%} of it, "
         f"{gbs:.1f} GB/s); plain {times['plain_ms']:.4f} ms")
-    if got["parent"]:
-        log("[kernel] parent Form 1 (insert_maps + kernel), turns parent/new/new/parent: "
-            + " / ".join(f"{x:.4f}" for x in got["parent"])
-            + f" ms (mean {times['parent_ms']:.4f}); new / parent = "
-            f"{times['ms'] / times['parent_ms']:.3f}")
-        check(times["ms"] < times["parent_ms"], "the new pass is not faster than Form 1")
+    if times["parent_ms"] is not None:
+        log("[kernel] the parent's pass, turns parent / new / new / parent: "
+            f"{got['parent'][0]:.4f} / {got['new'][0]:.4f} / {got['new'][1]:.4f} / "
+            f"{got['parent'][1]:.4f} ms -> parent / new = "
+            f"{times['parent_ms'] / times['ms']:.3f}")
     return times
 
 
@@ -661,16 +750,18 @@ def phase_lf_edges(torch, dev):
 def phase_query_edges(torch, dev):
     """Phase 3b (queries): both query kernels == their plain twins on the
     card at the query edge shapes of tests/test_torch_gpu.py, exact."""
-    from test_torch_gpu import QUERY_CASES, _as_list, query_calls, query_case
+    from test_torch_gpu import QUERY_CASES, QUERY_SIZE_CASES, _as_list, query_calls, query_case
 
     names = []
-    for kind, ck in QUERY_CASES:
-        case = query_case(kind, ck)
+    for kind, ck, B in ([(k, ck, None) for k, ck in QUERY_CASES]
+                        + [("ragged", ck, B) for B, ck in QUERY_SIZE_CASES]):
+        case = query_case(kind, ck, B=B)
         name = f"{kind}" + (f" + 6^{ck}" if ck else "")
         for tier, (kernel, plain, args) in query_calls(case, dev).items():
             got, want = _as_list(kernel(*args)), _as_list(plain(*args))
             check(all(torch.equal(g, w) for g, w in zip(got, want)),
                   f"{tier} {name}: kernel != plain")
+            parent_hold(torch, f"{tier} {name}", tier, kernel, [args], reps=0)
         names.append(f"{name} (B = {case['kmers'].shape[0]}, n = {case['dec'].size})")
     torch.cuda.synchronize()
     log(f"[query] edge shapes, packed and pair tiers: {len(names)} cases, kernel == plain on "
@@ -1036,9 +1127,10 @@ def phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts):
                            kernel, plain, args, walk_bound_bytes(torch, name, args))
     (rargs,) = range_args
     check(len(rargs) == 5, "the locate's range search was given a cache")
-    ranges = {"max_abs_err": agree(
-        torch, f"locate's range search ({rargs[3].shape[0]} x {K}-mers from [0, {rargs[2]}), "
-        "no cache)", query.kmer_ranges_packed, kmer_ranges_packed_plain, rargs, tag="query")}
+    name = f"locate's range search ({rargs[3].shape[0]} x {K}-mers from [0, {rargs[2]}), no cache)"
+    ranges = {"max_abs_err": agree(torch, name, query.kmer_ranges_packed,
+                                   kmer_ranges_packed_plain, rargs, tag="query"),
+              **parent_hold(torch, name, "packed", query.kmer_ranges_packed, [rargs], reps=20)}
     return launches, walks, ranges
 
 
@@ -1187,7 +1279,10 @@ def phase_query_tiers(torch, np, dev, reads, idx, packed, kmers, counts, cache8,
         agree(torch, f"correction's pair batch {i} ({b[4].shape[0]} x {b[4].shape[1]}-mers, "
               f"6^{b[7]} cache)", query.kmer_counts_pair, pair_rank.kmer_counts_pair_plain, b,
               tag="query")
-        for i, b in enumerate(batches))}
+        for i, b in enumerate(batches)),
+        **batches_hold(torch, f"the correction's {len(batches)} pair batches "
+                       f"({sum(b[4].shape[0] for b in batches)} k-mers)", "pair",
+                       query.kmer_counts_pair, batches)}
     del batches
     return launches, correct, holds
 
@@ -1655,8 +1750,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit (git archive): phase 3 "
-                         "also times its Form 1 merge pass, in turns with this one")
+                    help="a checkout of the parent commit (git archive): its merge pass "
+                         "and query kernels are held against this commit's and timed in "
+                         "turns with them")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1686,7 +1782,9 @@ def main(argv=None) -> int:
     log(ptxas.strip() or "(library up to date: not rebuilt)")
     log(f"[health] {json.dumps(session_health())}")
 
-    max_err, times = phase_kernel(torch, dev, args.parent)
+    global PARENT
+    PARENT = load_parent_kernels(args.parent)
+    max_err, times = phase_kernel(torch, dev)
     phase_lf_edges(torch, dev)
     phase_query_edges(torch, dev)
     phase_golden("cuda")
@@ -1740,6 +1838,7 @@ def main(argv=None) -> int:
                 **{k: res[k] for k in ("ms", "plain_ms", "bound_ms")},
                 "bound_by": "bytes", "library_ms": None, "access_ms": res["access_ms"],
                 "rows": res["rows"], "row_reads": res["row_reads"],
+                "parent_ms": res.get("parent_ms"),
                 "holds": {k: query_holds[k] for k in hold_keys[1:]}}
 
     columns = {"505m_col90": stage, "long_radix1_col1000": long_stages[1],

@@ -36,7 +36,11 @@ timed. Then:
    kernels (``kmer_ranges_packed`` / ``kmer_counts_pair``), and its host
    front split apart (median of three, each part fenced): the alphabet
    check, the upload of the k-mers and lengths, the search on the card,
-   the download and the int64 cast, beside three walls of the entry point.
+   the download and the int64 cast, beside three walls of the entry point;
+   then its device leg: the search alone on k-mers and lengths already on
+   the card, 20 searches inside one CUDA-event window, as the JAX bench's
+   ``query_qps_device`` (queries a second on the device, apart from the
+   host front).
    Then ``chip_smoke.py`` phase 10's correction (10,000 reads with one
    substitution each, ``correct_reads(k=21, tau=2)``) through pair + 6^9:
    its wall and the share of it spent in the batched counts.
@@ -173,6 +177,21 @@ def query_split(torch, np, dev, impl, kmers, cache, cache_k, entry, reps: int = 
     return {k: median(v) for k, v in parts.items()} | {"runs": parts}
 
 
+def device_leg(torch, dev, impl, kmers, cache, cache_k, label: str, reps: int = 20) -> dict:
+    """The search alone, as the JAX bench's ``query_qps_device``: ``impl``
+    on k-mers and lengths already on the card, ``reps`` calls back to back
+    inside one CUDA-event window (``utils.profiling.timeit``, one warm-up
+    call): device seconds a batch and queries a second."""
+    from rust_msbwt_tpu_torch.utils.profiling import timeit
+
+    km = torch.tensor(kmers, device=dev)
+    ln = torch.full((kmers.shape[0],), kmers.shape[1], dtype=torch.int32, device=dev)
+    s = timeit(lambda: impl(km, ln, cache, cache_k), reps=reps)
+    log(f"[{label}] device leg: {reps} searches on resident tensors, {s * 1e3:.4f} ms a batch "
+        f"-> {kmers.shape[0] / s:.0f} q/s on the device")
+    return {"device_s": s, "device_qps": kmers.shape[0] / s, "reps": reps}
+
+
 def profile_correction(np, reads, count) -> dict:
     """``correct_reads(k=21, tau=2)`` of ``chip_smoke.py`` phase 10's
     10,000 reads with one substitution each, through an engine whose
@@ -231,6 +250,10 @@ def profile_queries(torch, np, dev, idx, packed, kmers, top: int, reads=None) ->
         lambda km, ln, c, ck: _count_kmers_packed_impl(packed.table, packed.starts, packed.n,
                                                        km, ln, cache=c, cache_k=ck),
         kmers, cache, 8, lambda: count_kmers_packed(packed, kmers, cache=cache, cache_k=8))
+    out["query"]["device"] = device_leg(
+        torch, dev, lambda km, ln, c, ck: _count_kmers_packed_impl(
+            packed.table, packed.starts, packed.n, km, ln, cache=c, cache_k=ck),
+        kmers, cache, 8, "1M queries")
     del cache
     out["pair_index"] = profiled(torch, lambda: build_pair_index(idx), "pair index build", top)
     pair = build_pair_index(idx)
@@ -247,6 +270,10 @@ def profile_queries(torch, np, dev, idx, packed, kmers, top: int, reads=None) ->
         lambda km, ln, c, ck: _count_kmers_pair_impl(pair.table2, pair.starts, pair.dmat,
                                                      pair.n, km, ln, cache=c, cache_k=ck),
         kmers, cache9, 9, lambda: count_kmers_pair(pair, kmers, cache=cache9, cache_k=9))
+    out["query_pair"]["device"] = device_leg(
+        torch, dev, lambda km, ln, c, ck: _count_kmers_pair_impl(
+            pair.table2, pair.starts, pair.dmat, pair.n, km, ln, cache=c, cache_k=ck),
+        kmers, cache9, 9, "1M queries, pair + 6^9")
     if reads is not None:
         out["correction"] = profile_correction(
             np, reads, lambda km, ln: count_kmers_pair(pair, km, ln, cache=cache9, cache_k=9))
@@ -255,7 +282,9 @@ def profile_queries(torch, np, dev, idx, packed, kmers, top: int, reads=None) ->
         log(f"[{label}] host split (median of 3): alphabet check {sp['check'] * 1e3:.3f} ms, "
             f"upload {sp['upload'] * 1e3:.3f} ms, search {sp['search'] * 1e3:.3f} ms, "
             f"download {sp['download'] * 1e3:.3f} ms, int64 cast {sp['int64'] * 1e3:.3f} ms; "
-            f"entry point {sp['entry'] * 1e3:.3f} ms -> {kmers.shape[0] / sp['entry']:.0f} q/s")
+            f"entry point {sp['entry'] * 1e3:.3f} ms -> {kmers.shape[0] / sp['entry']:.0f} q/s; "
+            f"device leg {out[key]['device']['device_s'] * 1e3:.4f} ms -> "
+            f"{out[key]['device']['device_qps']:.0f} q/s")
     return out
 
 

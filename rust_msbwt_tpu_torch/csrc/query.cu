@@ -1,6 +1,6 @@
 // K-mer backward search for Hopper (sm_90a): the packed tier's range search
 // (kmer_ranges_packed) and the pair tier's counts (kmer_counts_pair), one
-// thread a query, one launch a batch.
+// launch a batch, a group of eight lanes a query (or two).
 //
 // The JAX package has no Pallas kernel for these: it runs them as XLA
 // fusions inside one compiled program (a fori_loop over the steps). What
@@ -10,37 +10,56 @@
 //                       ops/rank.py::_cache_seed (:168);
 //   kmer_counts_pair    rust_msbwt_tpu/ops/pair_rank.py::_count_kmers_pair_impl
 //                       (:363), with _rows_of (:300) and _decode_rank (:305).
-// Before these kernels the port ran the same loops as eager torch ops: per
-// step a [2B, 32] or [2B, 60] row gather, int64 SWAR popcounts, masks and
-// wheres, tens of kernels and host launches a step (and, for the pair tier,
-// a host sync a batch for the set of query lengths).
 //
-// What bounds them: memory latency. Each step is a dependent random row
-// read per bound (the next row depends on this step's rank), ~100 B of row
-// a bound against ~30 integer operations. A thread keeps its query's lo and
-// hi in registers from the cache seed to the end, and the loads of both
-// bounds go out together. A warp's k-mer byte loads are uncoalesced
-// (row-major [B, K]); a thread's K bytes sit in one or two sectors that
-// stay in L1 over its steps. This is the first form: no shared-memory
-// staging, one query a thread.
+// What bounds them: dependent random row reads. Each step reads one table
+// row a bound, at a position that depends on the step before; the tables
+// (379 MB packed, 947 MB pair at 505M symbols) are many times the 50 MB L2,
+// so nearly every read goes to device memory in whole 32 B sectors: ~100 B
+// of row against a few dozen integer operations. On an H100 at 505M
+// symbols both kernels now move their access model's bytes (96 B a packed
+// row, 128 B a pair row, one a bound a step) at 2.0-2.5 TB/s, where the
+// first form, one thread a query, reached 1.35-2.0 TB/s; what is left to
+// gain lies in fewer sectors, not in the instructions around them.
 //
-// The packed tier reads the PackedOccIndex table through rank.cuh's
-// rank_at, the rank the BCR stage step and the LF walks take (lf.cu). It
-// has no early exit: an empty range keeps stepping, as the JAX function
-// does, so lo and hi are bit-exact for locate_kmers; a step past the
-// query's length leaves them as they are.
+// The design: a query is served by a group of eight lanes of one warp, a
+// quad for lo and a quad for hi. Each lane loads whole 16 B pieces of its
+// bound's row, so one warp-wide load instruction reads the contiguous
+// pieces of eight rows instead of one piece of each of 32 unrelated rows,
+// and when lo and hi fall in one row their quads' loads are one request
+// (the load unit merges them). A quad ANDs its lanes' plane-match words
+// transposed (two shuffles; lane j ends with word 2(j & 1) + (j >> 1)),
+// counts that word below the in-bin offset with one __popc and sums the
+// quad (two more shuffles). Every lane stays in the loop to the end of its
+// warp's longest query (a warp-wide vote ends it), so no shuffle names a
+// lane that has left; a lane past its query's length, or past the end of
+// the batch, loads nothing and keeps its bound. A packed group holds two
+// queries and issues both rows' loads before it uses either; a pair group
+// holds one and its loads allocate no L1 line. tools/query_forms.py times
+// these forms against the others tried (one, two or four queries a group,
+// either load policy, other register budgets, persistent groups that take
+// a new query as soon as one is done, one thread a query).
+//
+// The packed tier reads the PackedOccIndex row (rank.cuh; the rank that
+// lf.cu's rank_at takes, cooperatively here): lane 0 of a quad the
+// occurrence piece of the step's symbol (lanes 0..3 or 4..7 of the row),
+// lanes 1..3 the bit planes 0..2. It has no early exit: an empty range
+// keeps stepping, as the JAX function does, so lo and hi are bit-exact for
+// locate_kmers; a step past the query's length leaves them as they are.
 //
 // The pair table (ops/pair_rank.py): int32 [nb, 60] per 128-position bin
 // (240 B rows, 16 B-aligned, no terminal row); lanes 0..35 count pair code
-// (s << 3 | prev) at lane s*6 + prev before the bin; lane 36 + 4p + l holds
-// bit plane p (of 6) of word l (of 4) of the bin's pair codes (the pad
-// code 63 past n). A round consumes two symbols (s2, then s1) off one row a
-// bound: l' = C[s1] + D[s1][s2] + rank2_{(s2, s1)}(l), all six planes; a
-// query with one symbol left takes the three symbol planes (3..5) and the
-// six occurrence lanes of its symbol. The reader takes row min(pos / 128,
-// nb - 1) and lets the in-bin offset reach 128 (a full-bin mask), as the
-// port's plain reader does. A query whose range is empty stops: its count
-// is 0 either way.
+// (s << 3 | prev) at lane s*6 + prev before the bin; lane 36 + 4p + l
+// holds bit plane p (of 6) of word l (of 4) of the bin's pair codes (the
+// pad code 63 past n), so plane p is the row's 16 B piece 9 + p. A round
+// consumes two symbols (s2, then s1) off one row a bound:
+// l' = C[s1] + D[s1][s2] + rank2_{(s2, s1)}(l); lane j of a quad loads
+// plane j and a second piece (plane 4, plane 5, the occurrence piece of
+// the code, nothing). A query with one symbol left takes the three symbol
+// planes (3..5, lanes 0..2) and the two pieces that hold its symbol's six
+// occurrence lanes (lane 3). The reader takes row min(pos / 128, nb - 1)
+// and lets the in-bin offset reach 128 (a full-bin mask), as the port's
+// plain reader does. A query whose range is empty stops: its count is 0
+// either way.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,8 +69,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPairLanes = 60;  // int32 lanes per pair-table row
-constexpr int kPlaneBase = 36;  // first bit-plane lane of a pair row
+constexpr int kGroup = 8;        // lanes a query: a quad for lo, a quad for hi
+constexpr int kPairLanes = 60;   // int32 lanes per pair-table row
+constexpr int kPlanePiece = 9;   // pair row: plane p is 16 B piece kPlanePiece + p
+constexpr int kPackedPlane = 2;  // packed row: plane p is 16 B piece 2 + p
 constexpr int kPairs = kSyms * kSyms;
 
 struct QueryArgs {
@@ -71,130 +92,235 @@ struct QueryArgs {
   int n;
 };
 
-// [lo, hi) of the query's last cache_k symbols off the prefix cache (its
-// code: the symbols' base-6 digits, most significant first), or [0, n).
-__device__ __forceinline__ void seed(const QueryArgs& a, const uint8_t* km, int& lo, int& hi) {
-  lo = 0;
-  hi = a.n;
+// This lane's place in its query group: quad lane j (0..3), whether its
+// quad holds hi (else lo), and the group's index.
+struct Lane {
+  int j;
+  bool upper;
+  int64_t group;
+};
+
+__device__ __forceinline__ Lane lane_of() {
+  const int g = threadIdx.x & (kGroup - 1);
+  return {g & 3, (g & 4) != 0, ((int64_t)blockIdx.x * kThreads + threadIdx.x) / kGroup};
+}
+
+// Query q's k-mer row, its steps (t < end are active) and this quad's seed
+// bound: lo or hi of its last cache_k symbols off the prefix cache (its
+// code: the symbols' base-6 digits, most significant first), or 0 / n. A
+// query past the end of the batch has no steps.
+__device__ __forceinline__ const uint8_t* seed(const QueryArgs& a, bool upper, int64_t q,
+                                               int& end, int& bound) {
+  end = 0;
+  bound = 0;
+  if (q >= a.B) return a.kmers;
+  const uint8_t* km = a.kmers + q * a.K;
+  end = min(__ldg(a.lengths + q), a.K);
+  bound = upper ? a.n : 0;
   if (a.cache_k > 0) {
     int64_t code = 0;
     for (int c = a.K - a.cache_k; c < a.K; ++c) code = code * kSyms + km[c];
-    lo = __ldg(a.cache_lo + code);
-    hi = __ldg(a.cache_hi + code);
+    bound = __ldg((upper ? a.cache_hi : a.cache_lo) + code);
+  }
+  return km;
+}
+
+__device__ __forceinline__ int lane_of4(const int4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// A read-only 16 B row piece, through L1 (kL1) or allocating no L1 line,
+// so that the k-mer bytes each step reads stay there.
+template <bool kL1>
+__device__ __forceinline__ int4 row_piece(const int4* p) {
+  if constexpr (kL1) {
+    return __ldg(p);
+  } else {
+    int4 v;
+    asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+        : "l"(p));
+    return v;
   }
 }
 
-// The pair row of pos (clamped to the last row) and the in-bin offset 0..128.
-__device__ __forceinline__ const int32_t* pair_row(const QueryArgs& a, int pos, int& r) {
-  int64_t b = pos >> kBinShift;
-  if (b > a.nb - 1) b = a.nb - 1;
-  r = pos - (int)(b << kBinShift);
-  return a.table + b * kPairLanes;
+__device__ __forceinline__ uint4 ones4() { return make_uint4(kFull, kFull, kFull, kFull); }
+
+// ~(v ^ sp) a word: the positions whose plane bit is the bit sp (0 or all
+// ones) stands for.
+__device__ __forceinline__ uint4 plane_match(const int4& v, unsigned sp) {
+  return make_uint4(~((unsigned)v.x ^ sp), ~((unsigned)v.y ^ sp), ~((unsigned)v.z ^ sp),
+                    ~((unsigned)v.w ^ sp));
 }
 
-// the four plane-match words ANDed with plane words v, bit sp of the code
-#define PAIR_MATCH(v, sp) \
-  m0 &= ~((unsigned)(v).x ^ (sp)); \
-  m1 &= ~((unsigned)(v).y ^ (sp)); \
-  m2 &= ~((unsigned)(v).z ^ (sp)); \
-  m3 &= ~((unsigned)(v).w ^ (sp));
-
-// rank of pair code (s2 << 3 | s1) in the pair stream before pos.
-__device__ __forceinline__ int pair_rank2(const QueryArgs& a, int pos, int s2, int s1) {
-  int r;
-  const int32_t* row = pair_row(a, pos, r);
-  const int4* planes = reinterpret_cast<const int4*>(row + kPlaneBase);
-  const int occ = __ldg(row + s2 * kSyms + s1);
-  const int code = (s2 << 3) | s1;
-  unsigned m0 = kFull, m1 = kFull, m2 = kFull, m3 = kFull;
-#pragma unroll
-  for (int p = 0; p < 6; ++p) {
-    const int4 v = __ldg(planes + p);
-    const unsigned sp = 0u - (unsigned)((code >> p) & 1);
-    PAIR_MATCH(v, sp)
-  }
-  return occ + below(m0, r, 0) + below(m1, r, 1) + below(m2, r, 2) + below(m3, r, 3);
+__device__ __forceinline__ uint4 and4(const uint4& a, const uint4& b) {
+  return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
 }
 
-// rank of symbol s (any prev) before pos: its six occurrence lanes and the
-// symbol planes 3..5.
-__device__ __forceinline__ int pair_rank1(const QueryArgs& a, int pos, int s) {
-  int r;
-  const int32_t* row = pair_row(a, pos, r);
-  const int4* planes = reinterpret_cast<const int4*>(row + kPlaneBase);
-  // lanes s*6 .. s*6+5 start 24 s bytes into a 16 B-aligned row: 8 B-aligned
-  const int2* occ = reinterpret_cast<const int2*>(row + s * kSyms);
-  const int2 o0 = __ldg(occ), o1 = __ldg(occ + 1), o2 = __ldg(occ + 2);
-  unsigned m0 = kFull, m1 = kFull, m2 = kFull, m3 = kFull;
-#pragma unroll
-  for (int p = 3; p < 6; ++p) {
-    const int4 v = __ldg(planes + p);
-    const unsigned sp = 0u - (unsigned)((s >> (p - 3)) & 1);
-    PAIR_MATCH(v, sp)
-  }
-  return o0.x + o0.y + o1.x + o1.y + o2.x + o2.y + below(m0, r, 0) + below(m1, r, 1)
-         + below(m2, r, 2) + below(m3, r, 3);
+// The quad's rank: its four lanes' match words x ANDed over the quad and
+// counted below in-bin offset r, plus every lane's occ. Transposed: after
+// the xor-1 exchange lane j holds words 2(j & 1) + {0, 1}, after the xor-2
+// exchange word 2(j & 1) + (j >> 1), so each lane counts one word and the
+// quad sums four counts. Every lane of the warp calls it.
+__device__ __forceinline__ int quad_rank(const uint4& x, int occ, int r, int j) {
+  const bool odd = j & 1;
+  const unsigned a0 = (odd ? x.z : x.x) & __shfl_xor_sync(kFull, odd ? x.x : x.z, 1);
+  const unsigned a1 = (odd ? x.w : x.y) & __shfl_xor_sync(kFull, odd ? x.y : x.w, 1);
+  const bool two = j & 2;
+  const unsigned m = (two ? a1 : a0) & __shfl_xor_sync(kFull, two ? a0 : a1, 2);
+  int c = occ + below(m, r, ((j & 1) << 1) | (j >> 1));
+  c += __shfl_xor_sync(kFull, c, 1);
+  return c + __shfl_xor_sync(kFull, c, 2);
 }
 
-#undef PAIR_MATCH
-
-__global__ void __launch_bounds__(kThreads) kmer_ranges_packed_kernel(const QueryArgs a) {
+// Q queries a group, interleaved: every row load of a step is issued
+// before any is used. The groups of a warp step together until the warp's
+// longest query is done (a lane past its query's end loads nothing).
+template <int Q, bool kL1>
+__global__ void __launch_bounds__(kThreads, 1) kmer_ranges_packed_kernel(const QueryArgs a) {
   __shared__ int s_starts[kStarts];
   if (threadIdx.x < kStarts) s_starts[threadIdx.x] = a.starts[threadIdx.x];
   __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= a.B) return;
-  const uint8_t* km = a.kmers + i * a.K;
-  const int end = min(a.lengths[i], a.K);  // steps t < end are active
-  int lo, hi;
-  seed(a, km, lo, hi);
-  for (int t = a.cache_k; t < end; ++t) {
-    const int s = km[a.K - 1 - t];
-    const int c = s_starts[s];
-    const int new_lo = c + rank_at(a.table, s, lo);
-    hi = c + rank_at(a.table, s, hi);
-    lo = new_lo;
+  const Lane l = lane_of();
+  int end[Q], bound[Q];
+  const uint8_t* km[Q];
+  int last = 0;
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    km[k] = seed(a, l.upper, l.group * Q + k, end[k], bound[k]);
+    last = max(last, end[k]);
   }
-  a.out0[i] = lo;
-  a.out1[i] = hi;
+  // lane 0 of a quad loads the occurrence piece of the symbol, lanes 1..3
+  // plane j - 1
+  const unsigned plane = max(l.j - 1, 0);
+  for (int t = a.cache_k; __any_sync(kFull, t < last); ++t) {
+    int s[Q];
+    int4 v[Q];
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      const bool act = t < end[k];
+      s[k] = act ? km[k][a.K - 1 - t] : 0;
+      v[k] = make_int4(0, 0, 0, 0);
+      if (act) {
+        const int4* row =
+            reinterpret_cast<const int4*>(a.table + (int64_t)(bound[k] >> kBinShift) * kRow);
+        v[k] = row_piece<kL1>(row + (l.j == 0 ? s[k] >> 2 : kPackedPlane + plane));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      const uint4 x = l.j == 0 ? ones4() : plane_match(v[k], 0u - ((s[k] >> plane) & 1u));
+      const int c = quad_rank(x, l.j == 0 ? lane_of4(v[k], s[k] & 3) : 0,
+                              bound[k] & kBinMask, l.j);
+      if (t < end[k]) bound[k] = s_starts[s[k]] + c;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const int64_t q = l.group * Q + k;
+    if (q < a.B && l.j == 0) (l.upper ? a.out1 : a.out0)[q] = bound[k];
+  }
 }
 
-__global__ void __launch_bounds__(kThreads) kmer_counts_pair_kernel(const QueryArgs a) {
+template <int Q, bool kL1>
+__global__ void __launch_bounds__(kThreads, 8) kmer_counts_pair_kernel(const QueryArgs a) {
   __shared__ int s_starts[kStarts];
   __shared__ int s_d[kPairs];  // C[s1] + D[s1][s2] at s1 * 6 + s2
   if (threadIdx.x < kStarts) s_starts[threadIdx.x] = a.starts[threadIdx.x];
   if (threadIdx.x < kPairs)
     s_d[threadIdx.x] = a.starts[threadIdx.x / kSyms] + a.dmat[threadIdx.x];
   __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= a.B) return;
-  const uint8_t* km = a.kmers + i * a.K;
-  const int end = min(a.lengths[i], a.K);
-  int lo, hi;
-  seed(a, km, lo, hi);
-  for (int t = a.cache_k; t < end && lo != hi; t += 2) {
-    const int s2 = km[a.K - 1 - t];
-    int new_lo;
-    if (t + 1 < end) {  // two symbols left: s2, then s1
-      const int s1 = km[a.K - 2 - t];
-      const int d = s_d[s1 * kSyms + s2];
-      new_lo = d + pair_rank2(a, lo, s2, s1);
-      hi = d + pair_rank2(a, hi, s2, s1);
-    } else {  // one symbol left
-      const int c = s_starts[s2];
-      new_lo = c + pair_rank1(a, lo, s2);
-      hi = c + pair_rank1(a, hi, s2);
-    }
-    lo = new_lo;
+  const Lane l = lane_of();
+  int end[Q], bound[Q], other[Q];  // other: the group's other bound
+  const uint8_t* km[Q];
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    km[k] = seed(a, l.upper, l.group * Q + k, end[k], bound[k]);
+    other[k] = __shfl_xor_sync(kFull, bound[k], 4);
   }
-  a.out0[i] = hi - lo;
+  for (int t = a.cache_k;; t += 2) {
+    bool act[Q], two[Q];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      act[k] = t < end[k] && bound[k] != other[k];
+      two[k] = t + 1 < end[k];  // two symbols left: s2, then s1
+      any |= act[k];
+    }
+    if (!__any_sync(kFull, any)) break;
+    int code[Q], occ_lane[Q];
+    int4 va[Q], vb[Q];
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      const int s2 = act[k] ? km[k][a.K - 1 - t] : 0;
+      const int s1 = act[k] && two[k] ? km[k][a.K - 2 - t] : 0;
+      int64_t b = bound[k] >> kBinShift;
+      if (b > a.nb - 1) b = a.nb - 1;
+      const int4* row = reinterpret_cast<const int4*>(a.table + b * kPairLanes);
+      // lane j loads plane j (a round) or plane 3 + j (a tail, lanes
+      // 0..2), and a second piece: plane 4 + j (a round, lanes 0..1), the
+      // code's occurrence piece (a round, lane 2); a tail's lane 3 loads
+      // the two pieces that hold the symbol's six occurrence lanes
+      code[k] = two[k] ? (s2 << 3) | s1 : s2 << 3;
+      occ_lane[k] = s2 * kSyms + (two[k] ? s1 : 0);
+      const bool occ_q = l.j == (two[k] ? 2 : 3);
+      const int piece_a = occ_q && !two[k] ? occ_lane[k] >> 2
+                                           : kPlanePiece + l.j + (two[k] ? 0 : 3);
+      const int piece_b = occ_q ? (occ_lane[k] >> 2) + !two[k] : kPlanePiece + 4 + l.j;
+      va[k] = vb[k] = make_int4(0, 0, 0, 0);
+      if (act[k]) {
+        va[k] = row_piece<kL1>(row + piece_a);
+        if (two[k] ? l.j < 3 : l.j == 3) vb[k] = row_piece<kL1>(row + piece_b);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      const bool occ_q = l.j == (two[k] ? 2 : 3);
+      const int plane_a = l.j + (two[k] ? 0 : 3);
+      uint4 x = occ_q && !two[k] ? ones4()
+                                 : plane_match(va[k], 0u - ((code[k] >> plane_a) & 1u));
+      if (two[k] && l.j < 2)
+        x = and4(x, plane_match(vb[k], 0u - ((code[k] >> (4 + l.j)) & 1u)));
+      int occ = 0;
+      if (occ_q)  // a round: one lane; a tail: lanes 6s..6s+5 from lane 0 or 2 of va on
+        occ = two[k] ? lane_of4(vb[k], occ_lane[k] & 3)
+                     : va[k].z + va[k].w + vb[k].x + vb[k].y
+                           + ((occ_lane[k] & 3) == 0 ? va[k].x + va[k].y : vb[k].z + vb[k].w);
+      int64_t b = bound[k] >> kBinShift;
+      if (b > a.nb - 1) b = a.nb - 1;
+      const int c = quad_rank(x, occ, bound[k] - (int)(b << kBinShift), l.j);  // offset 0..128
+      if (act[k]) {
+        const int s2 = code[k] >> 3, s1 = code[k] & 7;
+        bound[k] = (two[k] ? s_d[s1 * kSyms + s2] : s_starts[s2]) + c;
+      }
+      other[k] = __shfl_xor_sync(kFull, bound[k], 4);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const int64_t q = l.group * Q + k;
+    if (q < a.B && l.j == 0 && !l.upper) a.out0[q] = other[k] - bound[k];
+  }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, const QueryArgs& a, void* stream) {
+// The kept forms (tools/query_forms.py times the others): two interleaved
+// queries a group whose row loads go through L1 for the packed tier (at
+// least one block an SM: ptxas keeps 56 registers and issues both
+// queries' loads ahead of the shuffles), one query a group whose row loads
+// allocate no L1 line for the pair tier (eight blocks an SM: 32 registers,
+// 256 queries in flight an SM).
+constexpr int kPackedQueries = 2;
+constexpr bool kPackedL1 = true;
+constexpr int kPairQueries = 1;
+constexpr bool kPairL1 = false;
+
+// One group for each q queries, kThreads lanes a block.
+template <void (*Kernel)(QueryArgs)>
+int launch(const QueryArgs& a, int q, void* stream) {
   if (a.B > 0) {
-    const unsigned blocks = (unsigned)((a.B + kThreads - 1) / kThreads);
-    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+    const int64_t groups = (a.B + q - 1) / q;
+    const unsigned blocks = (unsigned)((groups * kGroup + kThreads - 1) / kThreads);
+    Kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -225,7 +351,7 @@ int msbwt_kmer_ranges_packed(const void* table, const void* starts, const void* 
   a.K = K;
   a.cache_k = cache_k;
   a.n = n;
-  return launch(kmer_ranges_packed_kernel, a, stream);
+  return launch<kmer_ranges_packed_kernel<kPackedQueries, kPackedL1>>(a, kPackedQueries, stream);
 }
 
 // The pair tier's counts: as msbwt_kmer_ranges_packed over the pair table
@@ -248,7 +374,7 @@ int msbwt_kmer_counts_pair(const void* table2, const void* starts, const void* d
   a.K = K;
   a.cache_k = cache_k;
   a.n = n;
-  return launch(kmer_counts_pair_kernel, a, stream);
+  return launch<kmer_counts_pair_kernel<kPairQueries, kPairL1>>(a, kPairQueries, stream);
 }
 
 }  // extern "C"

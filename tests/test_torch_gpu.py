@@ -11,8 +11,11 @@ edge shapes, and builds, extends, streamed builds, extract and locate
 through them against the CPU's plain path; the query kernels
 (``kmer_ranges_packed``, ``kmer_counts_pair``) against their plain twins
 on the same CUDA tensors at edge shapes (B = 1, B = 0, every query absent,
-n % 128 == 0, caches 6^8 / 6^9 / 6^11, 1.1M queries), ``count_batch``'s
-split of short queries, and bad inputs refused. Bit-exact throughout
+n % 128 == 0, caches 6^8 / 6^9 / 6^11, 1.1M queries, warps that mix
+queries that stop early with full ones and one-symbol tails, batch sizes
+at the edges of the kernels' lane groups, warps and blocks, with nothing
+written past the batch), ``count_batch``'s split of short queries, and
+bad inputs refused. Bit-exact throughout
 (tolerance 0: every output is an integer).
 
 Marked ``gpu``; without a card every test skips (the decision is made in a
@@ -691,11 +694,19 @@ def test_extract_locate_through_lf_kernels_match_cpu(cuda):
 
 # --- the query kernels (ops/query.py, csrc/query.cu) ------------------------
 
-QUERY_KINDS = ["one", "empty", "absent", "aligned", "ragged"]
+QUERY_KINDS = ["one", "empty", "absent", "aligned", "ragged", "mixed"]
 # (kind, cache depth) of the card cases: the kinds, then cached batches and
 # a batch of 1.1M queries
 QUERY_CASES = [(k, 0) for k in QUERY_KINDS] + [("ragged", 8), ("ragged", 9), ("ragged", 11),
+                                               ("mixed", 8), ("mixed", 9), ("mixed", 11),
                                                ("grid", 8)]
+# Batch sizes at the edges of the kernels' lane groups (eight lanes a group;
+# a group holds two packed queries or one pair query, so a warp holds 8 or
+# 4 and a 256-lane block 64 or 32): one query, part of a group, part of a
+# warp, a warp and one more, a block and one more, and a batch that is a
+# multiple of neither. Each is a ``ragged`` batch, with no cache and 6^9.
+QUERY_SIZES = [1, 2, 3, 5, 7, 9, 33, 65, 1000]
+QUERY_SIZE_CASES = [(B, ck) for B in QUERY_SIZES for ck in (0, 9)]
 
 
 @functools.lru_cache(maxsize=4)
@@ -718,17 +729,27 @@ def query_case(kind, cache_k=0, B=None):
     25,600 (256 reads of 99 bp, n % 128 == 0), so every query's first step
     ranks at hi == n, and lengths 0..21; ``ragged``: n = 25,755 (255 x 100
     bp), lengths 0..21, a tenth of the queries random; ``grid``: ``ragged``
-    at B = 1,100,003. With ``cache_k`` every length is at least cache_k."""
+    at B = 1,100,003; ``mixed``: the ``ragged`` index, B = 64, each four
+    queries in a row (one pair-tier group of a warp's four, half a
+    packed-tier warp) a random one that stops early, a full one (K), one of
+    the other parity (K - 1: the pair tier's last round is a one-symbol
+    tail or not) and one of cache_k + 1 symbols (one step: a tail). With
+    ``cache_k`` every length is at least cache_k."""
     K = 21
     dec, reads = _query_bwt(256, 99, 1) if kind == "aligned" else _query_bwt(255, 100, 2)
     r = np.random.default_rng(len(kind) + 100 * cache_k)
     if B is None:
-        B = {"one": 1, "empty": 0, "grid": 1_100_003}.get(kind, 3000)
+        B = {"one": 1, "empty": 0, "grid": 1_100_003, "mixed": 64}.get(kind, 3000)
     rows, offs = r.integers(0, reads.shape[0], B), r.integers(0, reads.shape[1] - K + 1, B)
     kmers = reads[rows[:, None], offs[:, None] + np.arange(K)[None, :]]
-    n_random = B if kind == "absent" else B // 10
-    kmers[B - n_random:] = r.integers(1, 6, (n_random, K))
     lengths = r.integers(cache_k, K + 1, B).astype(np.int32)
+    if kind == "mixed":
+        role = np.arange(B) % 4
+        kmers[role == 0] = r.integers(1, 6, (int((role == 0).sum()), K))
+        lengths = np.array([K, K, K - 1, cache_k + 1], np.int32)[role]
+    else:
+        n_random = B if kind == "absent" else B // 10
+        kmers[B - n_random:] = r.integers(1, 6, (n_random, K))
     if kind in ("one", "absent"):
         lengths[:] = K
     kmers[np.arange(K)[None, :] < (K - lengths)[:, None]] = 0
@@ -759,7 +780,38 @@ def test_query_kernels_match_plain(cuda, kind, cache_k):
     """Each tier's batch through its kernel and through its plain twin on
     the same CUDA tensors: equal (lo and hi for the packed tier, the
     counts for the pair tier), one launch (none for B = 0)."""
-    case = query_case(kind, cache_k)
+    _check_query_kernels(cuda, kind, query_case(kind, cache_k))
+
+
+@pytest.mark.parametrize("B,cache_k", QUERY_SIZE_CASES)
+def test_query_group_edges_match_plain(cuda, B, cache_k):
+    """Batches of every size at the edges of the kernels' lane groups,
+    warps and blocks (``QUERY_SIZES``): kernel == plain twin, one launch;
+    through the C entry points into outputs 128 entries longer than the
+    batch, the batch's B entries equal and nothing written past them."""
+    from rust_msbwt_tpu_torch.ops.lf import _launch
+    from rust_msbwt_tpu_torch.ops.query import _batch
+
+    case = query_case("ragged", cache_k, B=B)
+    _check_query_kernels(cuda, "ragged", case)
+    for tier, (_, plain, args) in query_calls(case, cuda).items():
+        pair = tier == "pair"
+        table, starts = args[:2]
+        n, kmers, lengths, cache, ck = args[3:] if pair else args[2:]
+        dev = table.device
+        clo, chi, ck = _batch(dev, starts, n, kmers, lengths, cache, ck)
+        out = torch.full((1 if pair else 2, B + 128), -7, dtype=torch.int32, device=dev)
+        if pair:
+            _launch("msbwt_kmer_counts_pair", table, starts, args[2], kmers, lengths, clo, chi,
+                    out[0], B, table.shape[0], kmers.shape[1], ck, n, dev=dev)
+        else:
+            _launch("msbwt_kmer_ranges_packed", table, starts, kmers, lengths, clo, chi, out[0],
+                    out[1], B, kmers.shape[1], ck, n, dev=dev)
+        assert torch.equal(out[:, :B].cpu(), torch.stack(_as_list(plain(*args)))), tier
+        assert bool((out[:, B:] == -7).all()), tier
+
+
+def _check_query_kernels(cuda, kind, case):
     B = case["kmers"].shape[0]
     for tier, (wrapper, plain, args) in query_calls(case, cuda).items():
         before = wrapper.launches

@@ -13,7 +13,11 @@ absent, and an index of n % 128 == 0 symbols (there the pair tier is held
 against the packed tier: the JAX pair reader reads past its table at hi
 == n, see tests/test_torch_query_tiers.py). The same cases run on the
 card, kernel against twin, in tests/test_torch_gpu.py. Every output is an
-integer: bit-exact throughout (tolerance 0).
+integer: bit-exact throughout (tolerance 0). The group-edge cases of the
+kernels (warps that mix early stops, full queries and one-symbol tails;
+batch sizes at the edges of the lane groups, warps and blocks) run here
+against the JAX functions too, and a replay checks that the cases put lo
+and hi in one row, in adjacent rows, rows apart and hi at n.
 """
 
 import numpy as np
@@ -28,7 +32,7 @@ from rust_msbwt_tpu.ops import rank as jrank
 
 from rust_msbwt_tpu_torch.ops import packed_rank, pair_rank, query
 from rust_msbwt_tpu_torch.utils.convert import kmer_cache_from_numpy
-from test_torch_gpu import QUERY_KINDS, query_calls, query_case
+from test_torch_gpu import QUERY_KINDS, QUERY_SIZE_CASES, query_calls, query_case
 
 
 def _launches():
@@ -146,3 +150,74 @@ def test_count_batch_short_queries_match_jax(ragged, tier):
     jlo, jhi, _ = _jax_search(jpk, jp, kmers, lengths)
     assert got.dtype == np.int64 and np.array_equal(got, jhi - jlo)
 
+
+
+def _batch_matches_jax(ragged, case):
+    """The case's batch through both dispatchers on CPU tensors (no launch)
+    == the JAX functions, with the JAX package's cache of the case's
+    depth (0, 8 or 9)."""
+    jpk, jp, caches = ragged
+    ck = case["cache_k"]
+    jcache, cache = caches.get(ck, (None, None))
+    km, ln = torch.from_numpy(case["kmers"]), torch.from_numpy(case["lengths"])
+    calls = query_calls(dict(case, cache_k=0), "cpu")
+    before = _launches()
+    lo, hi = packed_rank._kmer_ranges_packed_impl(*calls["packed"][2][:3], km, ln, cache=cache,
+                                                  cache_k=ck)
+    counts = pair_rank._count_kmers_pair_impl(*calls["pair"][2][:4], km, ln, cache=cache,
+                                              cache_k=ck)
+    assert _launches() == before
+    jlo, jhi, jcounts = _jax_search(jpk, jp, case["kmers"], case["lengths"], jcache, ck)
+    assert np.array_equal(lo.numpy(), jlo) and np.array_equal(hi.numpy(), jhi)
+    assert np.array_equal(counts.numpy(), jcounts)
+
+
+@pytest.mark.parametrize("B,cache_k", QUERY_SIZE_CASES)
+def test_group_sizes_match_jax(ragged, B, cache_k):
+    """Batch sizes at the edges of the kernels' lane groups, warps and
+    blocks, uncached and from the 6^9 cache: == the JAX functions."""
+    _batch_matches_jax(ragged, query_case("ragged", cache_k, B=B))
+
+
+@pytest.mark.parametrize("cache_k", [8, 9])
+def test_mixed_warp_matches_jax(ragged, cache_k):
+    """Each four queries an early stop, a full query, one of the other
+    parity and a one-step tail, from the 6^8 and 6^9 caches: == the JAX
+    functions (the uncached batch runs in
+    ``test_query_wrappers_on_cpu_run_plain``)."""
+    _batch_matches_jax(ragged, query_case("mixed", cache_k))
+
+
+def _row_relations(case) -> set:
+    """How lo's and hi's rows stand before each active step of the case's
+    packed search (the plain replay on the CPU): in one row, in adjacent
+    rows, rows apart, and hi == n."""
+    from rust_msbwt_tpu_torch.ops.bcr import index_from_symbols
+    from rust_msbwt_tpu_torch.ops.packed_rank import rank_packed
+
+    _, packed = index_from_symbols(torch.from_numpy(case["dec"]))
+    km, ln = torch.from_numpy(case["kmers"]), torch.from_numpy(case["lengths"])
+    B, K = km.shape
+    lo = torch.zeros(B, dtype=torch.int32)
+    hi = torch.full((B,), packed.n, dtype=torch.int32)
+    seen = set()
+    for t in range(K):
+        act = t < ln
+        d = (hi >> 7) - (lo >> 7)
+        for name, m in (("one row", d == 0), ("adjacent rows", d == 1), ("rows apart", d > 1),
+                        ("hi == n", hi == packed.n)):
+            if bool((m & act).any()):
+                seen.add(name)
+        s = torch.where(act, km[:, K - 1 - t].to(torch.int32), 0)
+        c = packed.starts[s.long()]
+        lo, hi = (torch.where(act, c + rank_packed(packed.table, s, x), x) for x in (lo, hi))
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["mixed", "aligned"])
+def test_cases_cover_row_edges(kind):
+    """The uncached ``mixed`` and ``aligned`` (n % 128 == 0) batches step
+    with lo and hi in one row, in adjacent rows and rows apart, and from
+    hi == n, so the card tests hold the kernels at every row relation."""
+    assert _row_relations(query_case(kind)) == {"one row", "adjacent rows", "rows apart",
+                                                "hi == n"}
