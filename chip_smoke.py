@@ -67,7 +67,9 @@ Phases:
      rows of the sorted reads; every hit of 1,000 located 21-mers must be
      where it says, with as many hits per query as phase 6 counted; the
      read-length walk (5M walkers at 505M), the extract and the locate
-     walks on those inputs through the kernel == the plain twin, timed;
+     walks on those inputs through the kernel == the plain twin, timed
+     against their bound and their access models, this commit's and the
+     parent's (``walk_bytes``);
      the locate's range search is one ``kmer_ranges_packed`` launch, its
      inputs (1,000 21-mers from [0, n), no cache) kept and held against the
      twin, exact
@@ -115,18 +117,20 @@ Phases:
      twice and the device loop three times for each, in turns; then one more
      device loop at each radix keeping column 1,000's ``lf_stage`` inputs
      (at radix 2 also the last pass's), and on those card tensors
-     ``lf_stage`` == its twin (timed) and the merge kernel == the plain
-     pass; (b) 20,000 of them at radix 2 through the plain pass and LF step
-     on the card == the kernels; (c) the BWT of the first 400,000 loaded
-     from RLE bytes and extended by the last 100,000 at the automatic radix
-     (counts reset just before) == (a)'s BWT, and its terminator and
-     read-length walks' inputs through ``lf_walk`` == the twins; (d) phase
-     6 checks its 101 passes (radix 1 at 100 bp); (e) 15M x 100 bp (1.515G
-     symbols) built (counts reset just before; column 90's ``lf_stage``
-     inputs, slots past 2^30, kept and held against the twin) and encoded
-     to RLE bytes in memory: ``RleBWT`` with its default budget (the card's)
-     must pick pair + 6^9, with ``MSBWT_TPU_DEVICE_BUDGET_GB=12`` the run
-     tier; their 1M counts == the packed tier's; each tier's peak memory;
+     ``lf_stage`` == its twin (timed; at radix 1 its event time split from
+     its kernel's device duration by the profiler) and the merge kernel ==
+     the plain pass; (b) 20,000 of them at radix 2 through the plain pass
+     and LF step on the card == the kernels; (c) the BWT of the first
+     400,000 loaded from RLE bytes and extended by the last 100,000 at the
+     automatic radix (counts reset just before) == (a)'s BWT, and its
+     terminator and read-length walks' inputs through ``lf_walk`` == the
+     twins, timed; (d) phase 6 checks its 101 passes (radix 1 at 100 bp);
+     (e) 15M x 100 bp (1.515G symbols) built (counts reset just before;
+     column 90's ``lf_stage`` inputs, slots past 2^30, kept and held
+     against the twin) and encoded to RLE bytes in memory: ``RleBWT`` with
+     its default budget (the card's) must pick pair + 6^9, with
+     ``MSBWT_TPU_DEVICE_BUDGET_GB=12`` the run tier; their 1M counts == the
+     packed tier's; each tier's peak memory;
      ``kmer_counts_pair`` held against its twin on the card-budget engine's
      pair table, 6^9 cache and 1M k-mers (positions past 2^30), exact, timed
  13. one JSON line of kernel results (``merge_insert``, ``lf_stage``,
@@ -135,12 +139,18 @@ Phases:
 
 With ``--parent DIR``, every query hold (phases 3b, 9, 10 and 12e, and the
 correction's batches) also runs the parent's query kernel, through the same
-C entry point of the parent's library, on the same card tensors: its output
-must equal this commit's kernel's, exactly; the timed holds time both in
-turns (parent, new, new, parent) and log the ratio. The merge pass of phase
-3 is timed the same way (its source is unchanged since the parent, so its
-ratio reads the noise of the turns). The ratios are logged and not checked,
-so noise cannot fail a run; the exactness is checked everywhere.
+C entry point of the parent's library, and every LF hold (phases 3b, 6b, 8,
+9, 12a, 12c and 12e) the parent's ``lf_stage`` or ``lf_walk`` through the
+parent's own ``ops/lf.py`` wrapper bound to its library (its C contract:
+the walks take ``bwt``), on the same card tensors: its output must equal
+this commit's kernel's, exactly; the timed holds time both in turns
+(parent, new, new, parent) and log the ratio. The merge pass of phase 3 is
+timed the same way (its source is unchanged since the parent, so its ratio
+reads the noise of the turns). The ratios are logged and not checked, so
+noise cannot fail a run; the exactness is checked everywhere. At column
+1,000 of phase 12a, ``lf_stage``'s event time a call is logged beside its
+kernel's own device duration from ``torch.profiler`` (``stage_split``),
+this commit's and the parent's.
 """
 
 from __future__ import annotations
@@ -163,6 +173,7 @@ LONG_READS, LONG_LEN, LONG_SMALL, LONG_BASE = 500_000, 1_000, 20_000, 400_000  #
 BIG_READS = 15_000_000  # phase 12e: 15M x 100 bp, 1.515G symbols
 LF_COL = 90  # phase 6b: the late column whose lf_stage inputs are kept
 PARENT = None  # --parent: the parent commit's loaded kernel library
+PARENT_LF = None  # --parent: the parent commit's ops/lf.py on that library
 
 
 def log(msg: str) -> None:
@@ -366,69 +377,113 @@ def hold_stage(torch, name, args, reps=20, plain_reps=3):
     """``hold`` for one kept ``lf_stage`` column. Its bound is the bytes the
     column must move for its data: 96 B of each distinct table row its reads
     rank in (counted here and logged), and 20 B of carry a read (v, lengths,
-    P, prev_v in; q, active, P, prev_v out), counts in and out."""
+    P, prev_v in; q, active, P, prev_v out), counts in and out. With
+    ``--parent``, the parent's ``lf_stage`` too (``parent_lf``)."""
     from rust_msbwt_tpu_torch.ops import lf
 
     j, tab, P = args[0], args[1], args[5]
     rows = int(torch.unique(P.long() >> 7).numel())
-    res = hold(torch, f"lf_stage, column {j} of {name} ({P.numel()} reads, max P "
-               f"{int(P.max())}, {rows} distinct rows of the {tab.shape[0]}-row table)",
-               lf.lf_stage, lf.lf_stage_plain, args, 96 * rows + 20 * P.numel() + 48,
-               reps=reps, plain_reps=plain_reps)
+    label = (f"lf_stage, column {j} of {name} ({P.numel()} reads, max P {int(P.max())}, "
+             f"{rows} distinct rows of the {tab.shape[0]}-row table)")
+    res = hold(torch, label, lf.lf_stage, lf.lf_stage_plain, args,
+               96 * rows + 20 * P.numel() + 48, reps=reps, plain_reps=plain_reps)
     res["rows"] = rows
+    res.update(parent_lf(torch, label, "lf_stage", args, reps))
     return res
 
 
-def walk_bound_bytes(torch, walk, args) -> int:
-    """Bytes a walk must move for this run's data: each table row (96 B) and
-    BWT symbol its kernel reads, once (found by replaying the walk with torch
-    ops), each stage-view byte it reads, and its other inputs and its outputs
-    once."""
+def walk_bytes(torch, walk, args) -> dict:
+    """Bytes a walk must move for this run's data, in two models, found by
+    replaying the walk with torch ops. ``bound_bytes`` reads each table row
+    its walkers touch once (96 B: the three sectors of a rank), each
+    stage-view byte (the cyclic walk) or BWT symbol (the locate walk) it
+    reads, and its other inputs and its outputs once. ``access`` is the
+    kernels' access model, one row read a walker step (the step that meets
+    '$' included; ``steps`` of them): this commit's (``access_bytes``) and
+    the parent's (``parent_access_bytes``, whose walks but the cyclic also
+    read a 32 B sector of the BWT a step). The cyclic walk reads 97 B a step
+    (row and stage view) in both; the read-length walk now streams the table
+    once (96 B a row), writes and reads 4 B of LF a position (``ceil(n /
+    128) * 128`` of them) and reads one 32 B sector a step; the extract walk
+    reads 96 B a step, the locate walk 128 B in both."""
     from rust_msbwt_tpu_torch.ops.packed_rank import lf_step
 
     table, starts = args[:2] if walk == "cyclic" else args[1:3]
     dev = table.device
     rows = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
+    steps = 0
     if walk == "cyclic":
-        _, _, n, cols, lengths, steps, n_steps = args
+        _, _, n, cols, lengths, steps_in, n_steps = args
         N = lengths.numel()
         pos = torch.full((N,), n, dtype=torch.int32, device=dev)
         m, col = lengths.long() + 1, torch.arange(N, device=dev)
-        lim = steps.clamp(max=n_steps)
+        lim = steps_in.clamp(max=n_steps)
         for t in range(n_steps):
             act = t < lim
             rows[(pos.long() >> 7)[act]] = True
             pos = torch.where(act, lf_step(table, starts, cols[t % m + 1, col], pos), pos)
-        return 96 * int(rows.sum()) + int(torch.minimum(lim, m).sum()) + 12 * N + 28
+        steps = int(lim.sum())
+        access = 97 * steps + 12 * N + 28
+        return {"bound_bytes": 96 * int(rows.sum()) + int(torch.minimum(lim, m).sum()) + 12 * N
+                + 28, "steps": steps, "access_bytes": access, "parent_access_bytes": access}
     bwt = args[0]
-    syms = torch.zeros(bwt.numel(), dtype=torch.bool, device=dev)
+    sym_bytes = 0
     if walk == "locate":
         pos, n_strings, l_max = args[3:]
+        syms = torch.zeros(bwt.numel(), dtype=torch.bool, device=dev)
         for _ in range(l_max + 1):
             live = pos >= n_strings
-            p = pos.long()[live]
-            syms[p], rows[p >> 7] = True, True
+            rows[pos.long()[live] >> 7] = True
+            syms[pos.long()[live]] = True
+            steps += int(live.sum())
             pos = torch.where(live, lf_step(table, starts, torch.where(live, bwt[pos.long()], 0),
                                             pos), pos)
-        return 96 * int(rows.sum()) + int(syms.sum()) + 12 * pos.numel() + 28
-    if walk == "lengths":  # from every '$' rotation until '$'
-        n, n_strings = args[3:]
-        pos, n_steps = torch.arange(n_strings, dtype=torch.int32, device=dev), n
-        io = 4 * n_strings + 4
-    else:  # extract: at most l_max + 1 steps
-        ids, l_max = args[3:]
-        pos, n_steps = ids.clone(), l_max + 1
-        io = ids.numel() * (5 + l_max)
-    live = torch.ones(pos.numel(), dtype=torch.bool, device=dev)
-    for _ in range(n_steps):
-        if not bool(live.any()):
-            break
-        syms[pos.long()[live]] = True
-        sym = bwt[pos.long()]
-        live &= sym != 0
-        rows[(pos.long() >> 7)[live]] = True
-        pos = torch.where(live, lf_step(table, starts, torch.where(live, sym, 0), pos), pos)
-    return 96 * int(rows.sum()) + int(syms.sum()) + io + 28
+        io, sym_bytes = 12 * pos.numel() + 28, int(syms.sum())
+    else:
+        if walk == "lengths":  # from every '$' rotation until '$'
+            n, n_strings = args[3:]
+            pos, n_steps = torch.arange(n_strings, dtype=torch.int32, device=dev), n
+            io = 4 * n_strings + 4 + 28
+        else:  # extract: at most l_max + 1 steps
+            ids, l_max = args[3:]
+            pos, n_steps = ids.clone(), l_max + 1
+            io = ids.numel() * (5 + l_max) + 28
+        live = torch.ones(pos.numel(), dtype=torch.bool, device=dev)
+        for _ in range(n_steps):
+            if not bool(live.any()):
+                break
+            rows[pos.long()[live] >> 7] = True
+            steps += int(live.sum())
+            sym = bwt[pos.long()]
+            live &= sym != 0
+            pos = torch.where(live, lf_step(table, starts, torch.where(live, sym, 0), pos), pos)
+    access = (128 if walk == "locate" else 96) * steps + io
+    if walk == "lengths":
+        n_lf = -(-args[3] // 128) * 128
+        access = 96 * (n_lf // 128) + 8 * n_lf + 32 * steps + io
+    return {"bound_bytes": 96 * int(rows.sum()) + sym_bytes + io, "steps": steps,
+            "access_bytes": access, "parent_access_bytes": 128 * steps + io}
+
+
+def hold_walk(torch, name, walk, kernel, plain, args, reps=10, plain_reps=2) -> dict:
+    """``hold`` for one kept walk against its bound (``walk_bytes``), its
+    access models logged apart; with ``--parent``, the parent's walk too
+    (``parent_lf``)."""
+    from rust_msbwt_tpu_torch.utils.profiling import DEFAULT_HBM_BW
+
+    by = walk_bytes(torch, walk, args)
+    res = hold(torch, name, kernel, plain, args, by["bound_bytes"], reps=reps,
+               plain_reps=plain_reps)
+    res.update(steps=by["steps"], access_ms=by["access_bytes"] / DEFAULT_HBM_BW * 1e3,
+               parent_access_ms=by["parent_access_bytes"] / DEFAULT_HBM_BW * 1e3)
+    res.update(parent_lf(torch, name, kernel.__name__, args, reps))
+    log(f"[lf] {name}: {by['steps']} walker steps; the access model {by['access_bytes']} B "
+        f"-> {res['access_ms']:.4f} ms ({res['access_ms'] / res['ms']:.1%} of the kernel's "
+        f"time); the parent's access model {by['parent_access_bytes']} B -> "
+        f"{res['parent_access_ms']:.4f} ms"
+        + (f" ({res['parent_access_ms'] / res['parent_ms']:.1%} of its time)"
+           if "parent_ms" in res else ""))
+    return res
 
 
 def query_bytes(torch, tier, args, packed) -> dict:
@@ -531,13 +586,39 @@ def merge_case(n_old, n_ins, seed, frac_active=1.0, clustered=False, extra=0):
     return old, q[perm].astype(np.int32), v[perm], active[perm]
 
 
+def load_parent_lf(parent, lib):
+    """The parent commit's ``ops/lf.py``, its launches made through the
+    parent's library ``lib`` (its ``_launch``, bound to that library): the
+    parent's wrappers, host code and C contract (the walks with ``bwt``).
+    None when no parent checkout is given."""
+    import importlib.util
+
+    import torch
+
+    if not parent:
+        return None
+    path = os.path.join(parent, "rust_msbwt_tpu_torch", "ops", "lf.py")
+    spec = importlib.util.spec_from_file_location("parent_lf", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def launch(fn_name, *args, dev):
+        args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+        err = getattr(lib, fn_name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"parent {fn_name} launch: CUDA error {err}")
+
+    mod._launch = launch
+    return mod
+
+
 def load_parent_kernels(parent):
     """The parent commit's kernel library, built from ``parent``'s own
     sources into its own ``_build`` and loaded by its own
     ``_kernels.load()`` (which sets its C entry points' argument types);
-    the query kernels' registers and spills of its build are logged. None
-    when no parent checkout is given."""
+    the query and LF kernels' registers and spills of its build are logged.
+    None when no parent checkout is given."""
     import importlib.util
+    import re
 
     if not parent:
         return None
@@ -547,8 +628,10 @@ def load_parent_kernels(parent):
     spec.loader.exec_module(mod)
     lines = mod.build().splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and "kmer_" in line:
-            name = "kmer_ranges_packed" if "kmer_ranges_packed" in line else "kmer_counts_pair"
+        m = re.search(r"(kmer_ranges_packed|kmer_counts_pair|lf_stage|lf_walk)_kernel(ILi(\d)E)?",
+                      line)
+        if "Compiling entry" in line and m:
+            name = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
             log(f"[parent] {name}: " + "; ".join(x.split(":")[-1].strip() if "Used" in x
                                                  else x.strip() for x in lines[i + 1: i + 4]
                                                  if "Used" in x or "spill" in x))
@@ -598,29 +681,87 @@ def turns(fns: dict, reps: int) -> dict:
     return got
 
 
-def parent_hold(torch, name, tier, kernel, batches, reps) -> dict:
-    """With ``--parent``: the parent's query kernel on each of ``batches``
-    (a wrapper's argument tuples) == this commit's ``kernel``, exactly;
-    then, unless ``reps`` is 0, the batches through each back to back,
-    timed in turns (launches uncounted), the ratio logged, not checked.
-    ``{}`` without a parent."""
-    if PARENT is None:
-        return {}
-    parent = query_call(PARENT, tier)
+def parent_turns(torch, name, kernel, parent, batches, reps, tag) -> dict:
+    """``parent`` (the parent commit's kernel behind a wrapper's contract)
+    on each of ``batches`` (argument tuples) == ``kernel``, every output
+    exactly; then, unless ``reps`` is 0, the batches through each back to
+    back, timed in turns (launches uncounted), the ratio logged, not
+    checked."""
+    def outs(o):
+        return [torch.as_tensor(t) for t in (o if isinstance(o, tuple) else (o,))]
+
     with uncounted():
         for args in batches:
-            got, want = (list(x) if isinstance(x, tuple) else [x]
-                         for x in (kernel(*args), parent(*args)))
-            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+            got, want = outs(kernel(*args)), outs(parent(*args))
+            check(len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want)),
                   f"{name}: this kernel != the parent's")
         if not reps:
             return {}
         t = turns({who: lambda fn=fn: [fn(*args) for args in batches]
                    for who, fn in (("parent", parent), ("new", kernel))}, reps)
     res = {"parent_ms": sum(t["parent"]) / 2, "turn_ms": sum(t["new"]) / 2}
-    log(f"[query] {name}: == the parent's kernel; turns parent / new / new / parent "
+    log(f"[{tag}] {name}: == the parent's kernel; turns parent / new / new / parent "
         f"{t['parent'][0]:.4f} / {t['new'][0]:.4f} / {t['new'][1]:.4f} / {t['parent'][1]:.4f} ms"
         f" -> parent / new = {res['parent_ms'] / res['turn_ms']:.3f}")
+    return res
+
+
+def parent_hold(torch, name, tier, kernel, batches, reps) -> dict:
+    """With ``--parent``: the parent's query kernel on each of ``batches``
+    (a wrapper's argument tuples) against this commit's ``kernel``
+    (``parent_turns``); ``{}`` without a parent."""
+    if PARENT is None:
+        return {}
+    return parent_turns(torch, name, kernel, query_call(PARENT, tier), batches, reps, "query")
+
+
+def parent_lf(torch, name, wrapper, args, reps) -> dict:
+    """With ``--parent``: the parent's ``ops/lf.py`` wrapper of that name
+    (its host code, its library, its C contract: the walks with ``bwt``)
+    on ``args`` against this commit's (``parent_turns``); ``{}`` without a
+    parent."""
+    from rust_msbwt_tpu_torch.ops import lf
+
+    if PARENT_LF is None:
+        return {}
+    return parent_turns(torch, name, getattr(lf, wrapper), getattr(PARENT_LF, wrapper), [args],
+                        reps, "lf")
+
+
+def stage_split(torch, name, args, reps=50) -> dict:
+    """``lf_stage`` at one kept column, split: the event time a call of
+    ``reps`` back-to-back wrapper calls (``cuda_ms``: the host's dispatch
+    when it is slower than the device) and, from ``torch.profiler``
+    (``utils/profiling.trace``) over the same calls, the device duration a
+    call of the kernel and of its other device events (the parent's counts
+    memset); for this commit's wrapper and, with ``--parent``, the
+    parent's. Launches uncounted."""
+    from rust_msbwt_tpu_torch.ops import lf
+    from rust_msbwt_tpu_torch.utils.profiling import device_us, trace
+
+    fns = {"new": lf.lf_stage}
+    if PARENT_LF is not None:
+        fns["parent"] = PARENT_LF.lf_stage
+    res = {}
+    with uncounted():
+        for who, fn in fns.items():
+            event_ms = cuda_ms(lambda: fn(*args), reps)
+            with tempfile.TemporaryDirectory() as d, trace(d) as prof:
+                for _ in range(reps):
+                    fn(*args)
+                torch.cuda.synchronize()
+            evts = [e for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+            kernel = sum(device_us(e) for e in evts if "lf_stage_kernel" in e.key)
+            other = sum(device_us(e) for e in evts) - kernel
+            n_other = sum(e.count for e in evts if "lf_stage_kernel" not in e.key)
+            res[who] = {"event_ms": event_ms, "kernel_ms": kernel / reps * 1e-3,
+                        "other_ms": other / reps * 1e-3, "other_events": n_other / reps}
+            r = res[who]
+            log(f"[lf] lf_stage split, {name}, {who}: event time {r['event_ms']:.4f} ms a call; "
+                f"device: kernel {r['kernel_ms']:.4f} ms, other events {r['other_ms']:.4f} ms "
+                f"({r['other_events']:.1f} a call); the host's share of the event time "
+                f"{1 - (r['kernel_ms'] + r['other_ms']) / r['event_ms']:.1%}")
     return res
 
 
@@ -719,7 +860,8 @@ def time_505m(torch, args, new_k, tab_k, merge_insert, merge_insert_slots):
 
 def phase_lf_edges(torch, dev):
     """Phase 3b: the LF-step kernels == their plain twins on the card at the
-    edge shapes of tests/test_torch_gpu.py, exact."""
+    edge shapes of tests/test_torch_gpu.py, exact (and, with ``--parent``,
+    == the parent's kernels)."""
     from rust_msbwt_tpu_torch.ops import lf
 
     from test_torch_gpu import (  # tests/ (on sys.path)
@@ -742,6 +884,7 @@ def phase_lf_edges(torch, dev):
     for name, kernel, plain, args in cases:
         got, want = _as_list(kernel(*args)), _as_list(plain(*args))
         check(all(torch.equal(g, w) for g, w in zip(got, want)), f"{name}: kernel != plain")
+        parent_lf(torch, name, kernel.__name__, args, reps=0)
     torch.cuda.synchronize()
     log(f"[lf] edge shapes: {len(cases)} cases, kernel == plain on the card, exact: "
         + ", ".join(name for name, *_ in cases))
@@ -1059,13 +1202,12 @@ def phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt):
     # the terminator walk through the kernel and its plain twin, on its inputs
     (args,) = walk_args
     del ext, rle, base, tp, walk_args
-    walk = hold(torch, f"terminator walk ({BATCH} walkers, {args[6]} steps, on the "
-                f"{bpacked.n}-symbol base)", lf.lf_walk_cyclic, lf.lf_walk_cyclic_plain, args,
-                walk_bound_bytes(torch, "cyclic", args), reps=10, plain_reps=1)
-    walk["steps"] = args[6]
+    walk = hold_walk(torch, f"terminator walk ({BATCH} walkers, {args[6]} steps, on the "
+                     f"{bpacked.n}-symbol base)", "cyclic", lf.lf_walk_cyclic,
+                     lf.lf_walk_cyclic_plain, args, plain_reps=1)
+    walk["loop_steps"] = args[6]
     log(f"[lf] terminator walk: kernel {walk['ms'] / args[6]:.4f} ms a step, plain "
-        f"{walk['plain_ms'] / args[6]:.3f} ms a step; the access model (96 B of row + 1 B "
-        f"of stage view a walker step) {97 * BATCH * args[6] / 3.35e12 * 1e3:.3f} ms")
+        f"{walk['plain_ms'] / args[6]:.3f} ms a step")
     return launches, walk
 
 
@@ -1123,8 +1265,8 @@ def phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts):
             ("extract", lf.lf_walk_extract, lf.lf_walk_extract_plain, ex_args[0]),
             ("locate", lf.lf_walk_locate, lf.lf_walk_locate_plain, loc_args[0])):
         walkers = N_READS if name == "lengths" else args[3].numel()
-        walks[name] = hold(torch, f"{name} walk ({walkers} walkers at {packed.n} symbols)",
-                           kernel, plain, args, walk_bound_bytes(torch, name, args))
+        walks[name] = hold_walk(torch, f"{name} walk ({walkers} walkers at {packed.n} symbols)",
+                                name, kernel, plain, args)
     (rargs,) = range_args
     check(len(rargs) == 5, "the locate's range search was given a cache")
     name = f"locate's range search ({rargs[3].shape[0]} x {K}-mers from [0, {rargs[2]}), no cache)"
@@ -1546,7 +1688,11 @@ def phase_long(torch, np, dev):
     with radix_env(1), capture(bcr, "lf_stage", keep=last_col) as stage1:
         bcr._build_device(p, dev, merge_insert)
     check(len(stage1) == 1, f"radix-1 loop kept {len(stage1)} columns")
-    stages = {1: hold_stage(torch, "the 500.5M loop at radix 1", stage1.pop())}
+    args1 = stage1.pop()
+    stages = {1: hold_stage(torch, "the 500.5M loop at radix 1", args1)}
+    stages[1]["split"] = stage_split(torch, f"column {LONG_LEN} of the 500.5M loop at radix 1",
+                                     args1)
+    del args1
     # the last radix-2 pass at full size (2N unsorted slots into the buffer
     # of n - 2N symbols): the kernel == the plain pass on those card tensors
     seen, calls = [], [0]
@@ -1638,13 +1784,20 @@ def phase_long(torch, np, dev):
           and launches_ext["lf_walk_lengths"] == 1, f"long-read extend: {lf_line(launches_ext)}")
     del dyn, ext
     (cargs,), (largs,) = cyc, lens
-    errs = [agree(torch, f"terminator walk of the long extend ({cargs[4].numel()} walkers, "
-                  f"{cargs[6]} steps, on the {cargs[2]}-symbol base)",
-                  lf.lf_walk_cyclic, lf.lf_walk_cyclic_plain, cargs),
-            agree(torch, f"lengths walk of the long extend ({largs[4]} walkers of "
-                  f"{LONG_LEN} bp, on the {largs[3]}-symbol base)",
-                  lf.lf_walk_lengths, lf.lf_walk_lengths_plain, largs)]
-    return l1, l2, launches_ext, res, stages, max(errs)
+    errs, walks = [], {}
+    for key, label, kernel, plain, args in (
+            ("cyclic", f"terminator walk of the long extend ({cargs[4].numel()} walkers, "
+             f"{cargs[6]} steps, on the {cargs[2]}-symbol base)",
+             lf.lf_walk_cyclic, lf.lf_walk_cyclic_plain, cargs),
+            ("lengths", f"lengths walk of the long extend ({largs[4]} walkers of {LONG_LEN} bp, "
+             f"on the {largs[3]}-symbol base)", lf.lf_walk_lengths, lf.lf_walk_lengths_plain,
+             largs)):
+        errs.append(agree(torch, label, kernel, plain, args))
+        with uncounted():
+            walks[key] = {"ms": cuda_ms(lambda: kernel(*args), 5)}
+        log(f"[lf] {label}: kernel {walks[key]['ms']:.4f} ms")
+        walks[key].update(parent_lf(torch, label, kernel.__name__, args, reps=5))
+    return l1, l2, launches_ext, res, stages, max(errs), walks
 
 
 def phase_budget(torch, np, dev):
@@ -1750,9 +1903,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit (git archive): its merge pass "
-                         "and query kernels are held against this commit's and timed in "
-                         "turns with them")
+                    help="a checkout of the parent commit (git archive): its merge pass, "
+                         "LF-step and query kernels are held against this commit's and timed "
+                         "in turns with them")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1782,8 +1935,9 @@ def main(argv=None) -> int:
     log(ptxas.strip() or "(library up to date: not rebuilt)")
     log(f"[health] {json.dumps(session_health())}")
 
-    global PARENT
+    global PARENT, PARENT_LF
     PARENT = load_parent_kernels(args.parent)
+    PARENT_LF = load_parent_lf(args.parent, PARENT)
     max_err, times = phase_kernel(torch, dev)
     phase_lf_edges(torch, dev)
     phase_query_edges(torch, dev)
@@ -1814,7 +1968,8 @@ def main(argv=None) -> int:
         phase_gloo_ranks(torch, np, dev, reads, lengths, d)
     del reads, lengths, kmers, counts, idx
     torch.cuda.empty_cache()
-    long_r1, long_r2, long_ext, _, long_stages, long_walk_err = phase_long(torch, np, dev)
+    long_r1, long_r2, long_ext, _, long_stages, long_walk_err, long_walks = phase_long(
+        torch, np, dev)
     torch.cuda.empty_cache()
     budget, _, big_stage, big_pair = phase_budget(torch, np, dev)
     query_holds.update({"1515m_pair_6^9": big_pair, "recovery_locate": locate_ranges})
@@ -1871,7 +2026,9 @@ def main(argv=None) -> int:
         "bound_ms": stage["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "columns": {name: {k: c[k] for k in ("ms", "plain_ms", "bound_ms", "rows")}
+        "parent_ms": stage.get("parent_ms"),
+        "columns": {name: {k: c.get(k) for k in ("ms", "plain_ms", "bound_ms", "rows",
+                                                  "parent_ms", "turn_ms", "split")}
                     for name, c in columns.items()},
     }, {
         "name": "lf_walk",
@@ -1887,9 +2044,13 @@ def main(argv=None) -> int:
         "bound_ms": walk["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "terminator_walk_steps": walk["steps"],
-        "walks": {name: {k: w[k] for k in ("ms", "plain_ms", "bound_ms")}
-                  for name, w in walks.items()},
+        "parent_ms": walk.get("parent_ms"),
+        "terminator_walk_steps": walk["loop_steps"],
+        "access_ms": walk["access_ms"],
+        "walks": {name: {k: w.get(k) for k in ("ms", "plain_ms", "bound_ms", "access_ms",
+                                                "parent_access_ms", "parent_ms", "turn_ms")}
+                  for name, w in [*walks.items(),
+                                  *((f"long_{k}", w) for k, w in long_walks.items())]},
     }, query_entry("kmer_ranges_packed", "rust_msbwt_tpu/ops/packed_rank.py:122",
                    ("packed_6^8", "recovery_locate"),
                    **launches_of("kmer_ranges_packed", skip=("_distributed",))),

@@ -84,14 +84,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _device_us(evt) -> float:
-    # torch >= 2.4 names it self_device_time_total; older releases self_cuda_
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
 def wall_time(fn) -> float:
     """Wall seconds of one fenced call (``utils.profiling.timed``)."""
     from rust_msbwt_tpu_torch.utils.profiling import timed
@@ -109,22 +101,24 @@ def profiled(torch, fn, label: str, top: int, groups: dict | None = None,
     columns ``fn`` runs; also the device events a column."""
     from torch.profiler import ProfilerActivity, profile
 
+    from rust_msbwt_tpu_torch.utils.profiling import device_us
+
     wall = wall_time(fn)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_wall = wall_time(fn)
     # device-side events only (kernels, copies, fills): the CPU ops that
     # launched them carry the same time again
     evts = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
-    evts.sort(key=_device_us, reverse=True)
-    dev_s = sum(_device_us(e) for e in evts) * 1e-6
+            if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+    evts.sort(key=device_us, reverse=True)
+    dev_s = sum(device_us(e) for e in evts) * 1e-6
     n_events = sum(e.count for e in evts)
     log(f"[{label}] wall {wall:.4f} s ({prof_wall:.4f} s profiled), device "
         f"{dev_s:.4f} s in {n_events} events, device idle "
         f"{100 * (1 - dev_s / wall):.1f}% of the unprofiled wall time")
     rows = []
     for e in evts[:top]:
-        ms = _device_us(e) * 1e-3
+        ms = device_us(e) * 1e-3
         rows.append({"name": e.key[:100], "count": e.count, "ms": ms})
         log(f"[{label}]   {ms:10.3f} ms  x{e.count:<5d} {e.key[:100]}")
     if not evts:
@@ -136,7 +130,7 @@ def profiled(torch, fn, label: str, top: int, groups: dict | None = None,
         log(f"[{label}] {n_events / columns:.1f} device events a column over {columns} "
             "columns")
     for name, pred in (groups or {}).items():
-        part = sum(_device_us(e) for e in evts if pred(e.key.lower())) * 1e-6
+        part = sum(device_us(e) for e in evts if pred(e.key.lower())) * 1e-6
         n_part = sum(e.count for e in evts if pred(e.key.lower()))
         out[f"{name}_s"] = part
         out[f"{name}_share"] = part / dev_s if dev_s else None
@@ -331,6 +325,7 @@ def correction_split(torch, dev, N: int, n: int, reps: int = 20) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from rust_msbwt_tpu_torch.ops.bcr import pair_order, pair_slots
+    from rust_msbwt_tpu_torch.utils.profiling import device_us
 
     ar = torch.arange(N, dtype=torch.int32, device=dev)
     q1 = (torch.sort(torch.randint(0, n - N, (N,), device=dev)).values.to(torch.int32)
@@ -352,7 +347,7 @@ def correction_split(torch, dev, N: int, n: int, reps: int = 20) -> dict:
             part = ("argsort" if name == "pair_order" and "sort" in k else
                     "searchsorted" if "searchsorted" in k else
                     "sort" if "sort" in k else name + " other")
-            out[part] = out.get(part, 0.0) + _device_us(e) * 1e-3 / reps
+            out[part] = out.get(part, 0.0) + device_us(e) * 1e-3 / reps
     return out
 
 

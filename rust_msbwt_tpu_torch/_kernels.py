@@ -113,7 +113,7 @@ def load():
                 ("msbwt_lf_stage", [vp] * 11 + [i64, i32, i32, vp]),
                 ("msbwt_lf_walk_cyclic", [vp] * 6 + [i64, i64, i32, vp]),
                 ("msbwt_lf_walk_lengths", [vp] * 5 + [i64, i64, vp]),
-                ("msbwt_lf_walk_extract", [vp] * 6 + [i64, i32, vp]),
+                ("msbwt_lf_walk_extract", [vp] * 5 + [i64, i32, vp]),
                 ("msbwt_lf_walk_locate", [vp] * 6 + [i64, i64, i32, vp]),
                 ("msbwt_kmer_ranges_packed", [vp] * 8 + [i64, i32, i32, i32, vp]),
                 ("msbwt_kmer_counts_pair", [vp] * 8 + [i64, i64, i32, i32, i32, vp]),

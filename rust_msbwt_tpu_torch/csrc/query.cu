@@ -72,7 +72,6 @@ constexpr int kThreads = 256;
 constexpr int kGroup = 8;        // lanes a query: a quad for lo, a quad for hi
 constexpr int kPairLanes = 60;   // int32 lanes per pair-table row
 constexpr int kPlanePiece = 9;   // pair row: plane p is 16 B piece kPlanePiece + p
-constexpr int kPackedPlane = 2;  // packed row: plane p is 16 B piece 2 + p
 constexpr int kPairs = kSyms * kSyms;
 
 struct QueryArgs {
@@ -125,10 +124,6 @@ __device__ __forceinline__ const uint8_t* seed(const QueryArgs& a, bool upper, i
   return km;
 }
 
-__device__ __forceinline__ int lane_of4(const int4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
 // A read-only 16 B row piece, through L1 (kL1) or allocating no L1 line,
 // so that the k-mer bytes each step reads stay there.
 template <bool kL1>
@@ -144,33 +139,8 @@ __device__ __forceinline__ int4 row_piece(const int4* p) {
   }
 }
 
-__device__ __forceinline__ uint4 ones4() { return make_uint4(kFull, kFull, kFull, kFull); }
-
-// ~(v ^ sp) a word: the positions whose plane bit is the bit sp (0 or all
-// ones) stands for.
-__device__ __forceinline__ uint4 plane_match(const int4& v, unsigned sp) {
-  return make_uint4(~((unsigned)v.x ^ sp), ~((unsigned)v.y ^ sp), ~((unsigned)v.z ^ sp),
-                    ~((unsigned)v.w ^ sp));
-}
-
 __device__ __forceinline__ uint4 and4(const uint4& a, const uint4& b) {
   return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
-}
-
-// The quad's rank: its four lanes' match words x ANDed over the quad and
-// counted below in-bin offset r, plus every lane's occ. Transposed: after
-// the xor-1 exchange lane j holds words 2(j & 1) + {0, 1}, after the xor-2
-// exchange word 2(j & 1) + (j >> 1), so each lane counts one word and the
-// quad sums four counts. Every lane of the warp calls it.
-__device__ __forceinline__ int quad_rank(const uint4& x, int occ, int r, int j) {
-  const bool odd = j & 1;
-  const unsigned a0 = (odd ? x.z : x.x) & __shfl_xor_sync(kFull, odd ? x.x : x.z, 1);
-  const unsigned a1 = (odd ? x.w : x.y) & __shfl_xor_sync(kFull, odd ? x.y : x.w, 1);
-  const bool two = j & 2;
-  const unsigned m = (two ? a1 : a0) & __shfl_xor_sync(kFull, two ? a0 : a1, 2);
-  int c = occ + below(m, r, ((j & 1) << 1) | (j >> 1));
-  c += __shfl_xor_sync(kFull, c, 1);
-  return c + __shfl_xor_sync(kFull, c, 2);
 }
 
 // Q queries a group, interleaved: every row load of a step is issued

@@ -4,26 +4,29 @@
 The JAX package runs these as XLA fusions inside one compiled program
 (``ops.bcr._pallas_stage_step`` in a ``fori_loop``, the walks' own
 ``fori_loop``s); the port ran them as eager torch ops, tens of kernels and
-host launches a column or a walk step. Here each is one launch:
+host launches a column or a walk step. Here each is one call:
 
 * **lf_stage** — one BCR column of the stage loop: every read's slot
   ``q = C[f] + rank(f, P)`` for its previous symbol ``f = prev_v`` at its
   previous slot ``P``, off one table row; ``active = j <= len + 1``; the
-  carry ``P``, ``prev_v`` and the symbol counts after the column.
-  ``lf_stage_plain`` is the plain version.
-* **lf_walk** — a batched LF walk run to its end inside one launch, one
-  thread a walker. Four walks share the kernel:
-  ``lf_walk_cyclic`` (the extend's cyclic terminator search, symbols from
-  the stage view), ``lf_walk_lengths`` (string lengths from the '$'
-  rotations: one launch and one host read, where the plain version checks
-  the host every ``LF_BLOCK`` steps), ``lf_walk_extract`` (reads
-  right-aligned) and ``lf_walk_locate`` (rows to their read id and offset),
-  the last three reading each step's symbol from the BWT. Each has a
-  ``*_plain`` twin.
+  carry ``P``, ``prev_v`` and the symbol counts after the column; one
+  kernel, the counts summed inside it (no memset). ``lf_stage_plain`` is
+  the plain version.
+* **lf_walk** — a batched LF walk run to its end inside one call. Four walks
+  share the kernel file: ``lf_walk_cyclic`` (the extend's cyclic terminator
+  search, symbols from the stage view) and ``lf_walk_extract`` (reads
+  right-aligned, each step's symbol from the table row:
+  ``symbols_from_table`` is the plain decode) serve a walker with four
+  lanes of a warp; ``lf_walk_locate`` (rows to their read id and offset)
+  one thread a walker, its symbols from the BWT; ``lf_walk_lengths`` (string
+  lengths from the '$' rotations) writes LF of every position into a
+  transient of 4 B a position, then chases it, and reads the host once,
+  where the plain version checks the host every ``LF_BLOCK`` steps. Each
+  has a ``*_plain`` twin, which reads the BWT.
 
 On a CUDA tensor a wrapper launches its kernel on the current stream (or
 raises); on a CPU tensor it runs the plain version. Each wrapper counts its
-kernel launches in ``.launches``. Every output is an integer and equal
+calls that launch in ``.launches``. Every output is an integer and equal
 between the two, bit for bit.
 """
 
@@ -35,6 +38,7 @@ import torch
 from rust_msbwt_tpu_torch.ops.alphabet import VC_LEN
 from rust_msbwt_tpu_torch.ops.merge_insert import ROW, _check
 from rust_msbwt_tpu_torch.ops.packed_rank import lf_step
+from rust_msbwt_tpu_torch.ops.rank import BIN
 
 _I32 = torch.int32
 LF_BLOCK = 32  # plain read-length walk: LF steps between two host checks
@@ -57,6 +61,23 @@ def _bump_counts(counts, v, active):
     return counts + ((v.long()[:, None] == ar6[None, :]) & active[:, None]).sum(
         0, dtype=_I32
     )
+
+
+def symbols_from_table(table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The symbol at each position ``pos`` (int, ``[...]``) off the packed
+    table's bit planes, as the walk kernels decode it: bit ``pos % 32`` of
+    word ``pos % 128 // 32`` of planes 0..2 of row ``pos // 128``; uint8,
+    7 (PAD) past the table's ``n`` in its last bin (a terminal row's zero
+    planes read 0; no walk reads there). Plain torch ops on any device."""
+    pos = pos.long()
+    r = pos & (BIN - 1)
+    lane = 8 + (r >> 5)
+    row = table[pos >> 7]
+    sym = torch.zeros(pos.shape, dtype=torch.int64, device=pos.device)
+    for p in range(3):
+        word = row.gather(-1, (lane + 4 * p).unsqueeze(-1)).squeeze(-1).long()
+        sym |= ((word >> (r & 31)) & 1) << p
+    return sym.to(torch.uint8)
 
 
 def _device_of(table: torch.Tensor, lanes: int = ROW) -> torch.device | None:
@@ -106,8 +127,8 @@ def lf_stage(j: int, tab: torch.Tensor, nst: int, cols: torch.Tensor,
     ``tab`` int32 ``[rows, 32]`` (the current packed table), ``cols`` uint8
     ``[L + 2, N]`` (the stage view), ``lengths`` / ``P`` int32 ``[N]``,
     ``prev_v`` uint8 ``[N]``, ``counts`` int32 ``[6]``; ``nst`` the strings
-    in all. On CUDA tensors one launch (and a 24-byte memset of the new
-    counts); no host sync.
+    in all. On CUDA tensors one kernel launch (it sums the new counts
+    itself: no memset); no host sync.
     """
     dev = _device_of(tab)
     if dev is None:
@@ -208,21 +229,25 @@ def lf_walk_lengths_plain(bwt, table, starts, n: int, n_strings: int) -> np.ndar
 
 def lf_walk_lengths(bwt: torch.Tensor, table: torch.Tensor, starts: torch.Tensor, n: int,
                     n_strings: int) -> np.ndarray:
-    """``lf_walk_lengths_plain`` in one launch on CUDA tensors: the int32
-    lengths on the host. A walker that takes ``n`` steps without meeting
-    '$' sets a device flag; the host reads it with the lengths, once, and
-    raises ``ValueError`` as the plain version does."""
+    """``lf_walk_lengths_plain`` on CUDA tensors: the int32 lengths on the
+    host. One call: LF of every position into a transient int32 array of
+    ``ceil(n / 128) * 128`` entries, then two walkers a thread chasing it. A
+    walker that takes ``n`` steps without meeting '$' sets a device flag;
+    the host reads it with the lengths, once, and raises ``ValueError`` as
+    the plain version does. The kernels read the table, not ``bwt``."""
     dev = _device_of(table)
     if dev is None:
         return lf_walk_lengths_plain(bwt, table, starts, n, n_strings)
     if n_strings == 0:
         return np.zeros(0, dtype=np.int32)
     _check("starts", starts, _I32, (VC_LEN + 1,), dev)
-    _check("bwt", bwt, torch.uint8, (bwt.shape[0],), dev)
-    if not n_strings <= n <= bwt.shape[0]:
-        raise ValueError(f"lf_walk_lengths: {n_strings} strings in a BWT of {n} symbols")
+    rows = -(-n // BIN)
+    if not n_strings <= n <= BIN * table.shape[0]:
+        raise ValueError(f"lf_walk_lengths: {n_strings} strings in a BWT of {n} symbols "
+                         f"over a table of {table.shape[0]} rows")
+    lf = torch.empty(rows * BIN, dtype=_I32, device=dev)
     out = torch.empty(n_strings + 1, dtype=_I32, device=dev)  # lengths, then the flag
-    _launch("msbwt_lf_walk_lengths", table, starts, bwt, out, out[n_strings:], n_strings, n,
+    _launch("msbwt_lf_walk_lengths", table, starts, lf, out, out[n_strings:], n_strings, n,
             dev=dev)
     lf_walk_lengths.launches += 1
     out = out.cpu().numpy()
@@ -256,17 +281,17 @@ def lf_walk_extract_plain(bwt, table, starts, ids, l_max: int):
 def lf_walk_extract(bwt: torch.Tensor, table: torch.Tensor, starts: torch.Tensor,
                     ids: torch.Tensor, l_max: int):
     """``lf_walk_extract_plain`` in one launch on CUDA tensors: ``(out u8
-    [B, l_max], done bool [B])`` for int32 row ids ``ids``."""
+    [B, l_max], done bool [B])`` for int32 row ids ``ids``. The kernel takes
+    each symbol from the table, not from ``bwt``."""
     dev = _device_of(table)
     if dev is None:
         return lf_walk_extract_plain(bwt, table, starts, ids, l_max)
     B = ids.shape[0]
     _check("starts", starts, _I32, (VC_LEN + 1,), dev)
-    _check("bwt", bwt, torch.uint8, (bwt.shape[0],), dev)
     _check("ids", ids, _I32, (B,), dev)
     out = torch.zeros((B, l_max), dtype=torch.uint8, device=dev)
     done = torch.empty(B, dtype=torch.bool, device=dev)
-    _launch("msbwt_lf_walk_extract", table, starts, bwt, ids, out, done, B, l_max, dev=dev)
+    _launch("msbwt_lf_walk_extract", table, starts, ids, out, done, B, l_max, dev=dev)
     lf_walk_extract.launches += 1
     return out, done
 

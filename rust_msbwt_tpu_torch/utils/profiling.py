@@ -50,6 +50,16 @@ def trace(log_dir: str):
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
+def device_us(evt) -> float:
+    """A ``key_averages()`` event's own device microseconds
+    (``self_device_time_total`` from torch 2.4 on, ``self_cuda_time_total``
+    before; 0 for an event with neither)."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
 def annotate(name: str):
     """Named region inside an active trace."""
     return torch.profiler.record_function(name)

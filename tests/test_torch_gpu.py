@@ -605,6 +605,98 @@ def test_lf_walk_kernel_matches_plain(cuda, kind, walk):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+LF_WALK_EDGES = ["dollar", "one", "ragged", "big"]
+
+
+def lf_walk_edge(edge, dev):
+    """The walks at the edges of the walk kernels' lane groups (quads of a
+    warp) and of the read-length walk's LF array, as ``lf_walk_calls``
+    (card only: the plain twins' parity with the JAX package is
+    tests/test_torch_lf.py's).
+    ``dollar``: walkers that meet '$' at their first step beside ones that
+    do not, in every warp: a base with empty strings (read lengths 0),
+    extract from rows whose symbol is '$' and locate from rows below
+    n_strings among the others, every third cyclic walker taking no step;
+    ``one``: one walker of each walk; ``ragged``: the ``many`` case, whose
+    extract walkers end at many different steps within each group of eight
+    (asserted); ``big``: 1.1M walkers of each walk (1.1M strings of 0-3 bp
+    built on the card, 1.1M new reads)."""
+    from rust_msbwt_tpu_torch.ops.bcr import sort_reads
+
+    if edge in ("dollar", "big"):
+        r = np.random.default_rng(17 if edge == "dollar" else 18)
+        n_base, n_new, top = (600, 200, 9) if edge == "dollar" else (1_100_000, 1_100_003, 4)
+        lens = r.integers(0, top, n_base).astype(np.int32)
+        if edge == "dollar":
+            lens[::3] = 0
+        reads = np.where(np.arange(top)[None, :] < lens[:, None],
+                         r.integers(1, 6, (n_base, top)), 0).astype(np.uint8)
+        base = build_msbwt(reads, lens, device=dev)
+        new_l = r.integers(1, top, n_new).astype(np.int32)
+        new = np.where(np.arange(top)[None, :] < new_l[:, None],
+                       r.integers(1, 6, (n_new, top)), 0).astype(np.uint8)
+        calls = lf_walk_calls((base, n_base, int(lens.max()) + 1, *sort_reads(new, new_l)), dev)
+    else:
+        calls = lf_walk_calls(lf_walk_case("many", 4), dev)
+    if edge == "dollar":
+        wrapper, plain, (tab, st, n, cols, lengths, steps, n_steps) = calls["cyclic"]
+        steps = steps.clone()
+        steps[::3] = 0
+        calls["cyclic"] = (wrapper, plain, (tab, st, n, cols, lengths, steps, n_steps))
+        wrapper, plain, (bwt, tab, st, ids, l_max) = calls["extract"]
+        rows = torch.nonzero(bwt[: n] == 0).flatten().to(torch.int32)
+        mixed = torch.stack([rows, ids[: rows.numel()]], 1).flatten()
+        calls["extract"] = (wrapper, plain, (bwt, tab, st, mixed, l_max))
+    if edge == "one":
+        for walk, (wrapper, plain, args) in list(calls.items()):
+            if walk == "cyclic":
+                tab, st, n, cols, lengths, steps, n_steps = args
+                args = (tab, st, n, cols[:, -1:].contiguous(), lengths[-1:], steps[-1:], n_steps)
+            elif walk == "lengths":
+                args = (*args[:4], 1)
+            else:
+                args = (*args[:3], args[3][-1:].clone(), *args[4:])
+            calls[walk] = (wrapper, plain, args)
+    if edge == "ragged":  # the first eight warps: every quad group of 8 lanes ragged
+        _, plain, args = calls["extract"]
+        steps = (plain(*args)[0] != 0).sum(1).cpu()
+        assert all(len(set(g.tolist())) > 1 for g in steps[:64].view(-1, 8))
+    return calls
+
+
+@pytest.mark.parametrize("walk", ["cyclic", "lengths", "extract", "extract_short", "locate"])
+@pytest.mark.parametrize("edge", LF_WALK_EDGES)
+def test_lf_walk_edges_match_plain(cuda, edge, walk):
+    """Each walk at the lane-group and LF-array edges (``lf_walk_edge``):
+    kernel == plain twin on the same CUDA tensors, one launch."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_walk_launches
+
+    wrapper, plain, args = lf_walk_edge(edge, cuda)[walk]
+    before = lf_walk_launches()
+    got, want = _as_list(wrapper(*args)), _as_list(plain(*args))
+    assert lf_walk_launches() == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_lf_stage_repeats_keep_counts(cuda):
+    """lf_stage many times in a row on reused inputs, at grid sizes of one
+    block, a few and the cap: every output, counts_out above all (the
+    kernel sums the counts in device-wide accumulators that its last block
+    clears), == the plain twin's each time, one launch a call."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_stage, lf_stage_plain
+
+    cases = [lf_stage_args(lf_stage_case(kind, len(kind), N=N), cuda)
+             for kind, N in (("ragged", None), ("one", None), ("ragged", 1_100_003),
+                             ("inactive", None))]
+    want = [lf_stage_plain(*args) for args in cases]
+    before = lf_stage.launches
+    for k in range(40):
+        got = lf_stage(*cases[k % len(cases)])
+        assert all(torch.equal(g, w) for g, w in zip(got, want[k % len(cases)])), k
+    torch.cuda.synchronize()
+    assert lf_stage.launches == before + 40
+
+
 def test_lf_walk_lengths_kernel_raises_on_open_walk(cuda):
     """A BWT without '$' on the walk: the device flag raises ValueError."""
     from rust_msbwt_tpu_torch.ops.lf import lf_walk_lengths

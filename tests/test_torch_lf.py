@@ -32,6 +32,7 @@ from rust_msbwt_tpu.ops.rank import build_occ_index as j_build_occ_index
 
 from rust_msbwt_tpu_torch.ops import bcr, lf
 from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert_slots
+from rust_msbwt_tpu_torch.ops.packed_rank import lf_step
 from rust_msbwt_tpu_torch.ops.rank import PAD
 from test_torch_extend import KINDS, N_BASE, _case, _pad
 from test_torch_gpu import (
@@ -191,6 +192,39 @@ def test_lf_walks_one_walker_match_jax(walk):
     assert got[0].shape[0] == 1
     for g, w in zip(got, want):
         assert np.array_equal(np.asarray(g), np.asarray(w)), walk
+
+
+@pytest.mark.parametrize("kind", KINDS + LF_WALK_KINDS)
+def test_symbols_from_table_match_bwt_on_walk_positions(kind):
+    """The walk kernels' symbol decode (``symbols_from_table``, plain) on
+    every position a read-length walk visits: the walks from the '$'
+    rotations visit each of [0, n) exactly once (what the LF-array form of
+    the read-length walk rests on) and never n or past it, and each
+    position decodes to the BWT's symbol, off the port's table and off the
+    JAX package's packed table of the same BWT; the padded positions of the
+    last bin decode to 7 (PAD). ``aligned`` has n % 128 == 0."""
+    base, n_strings = _walk_case(kind)[:2]
+    idx, packed = bcr.index_from_symbols(torch.from_numpy(base))
+    n = packed.n
+    pos = torch.arange(n_strings, dtype=torch.int32)
+    live = torch.ones(n_strings, dtype=torch.bool)
+    seen = []
+    while bool(live.any()):
+        seen.append(pos[live].clone())
+        sym = idx.bwt[pos.long()]
+        live &= sym != 0
+        pos = torch.where(live, lf_step(packed.table, packed.starts, torch.where(live, sym, 0),
+                                         pos), pos)
+    seen = torch.cat(seen)
+    assert torch.equal(torch.sort(seen).values, torch.arange(n, dtype=torch.int32))
+    jtable = torch.from_numpy(np.array(j_pack_index(j_build_occ_index(base)).table))
+    want = torch.from_numpy(base)[seen.long()]
+    assert torch.equal(lf.symbols_from_table(packed.table, seen), want)
+    assert torch.equal(lf.symbols_from_table(jtable, seen), want)
+    pad = torch.arange(n, -(-n // 128) * 128)
+    assert bool((lf.symbols_from_table(packed.table, pad) == PAD).all())
+    if kind == "aligned":
+        assert n % 128 == 0 and pad.numel() == 0
 
 
 def test_lf_walk_lengths_raises_on_open_walk():
