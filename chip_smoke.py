@@ -52,8 +52,17 @@ Phases:
      100 ``lf_stage`` launches and no walk; the three 1M-count batches
      three ``kmer_ranges_packed`` launches and no ``kmer_counts_pair``
   6b. ``lf_stage`` at full size: phase 6's reads built once more with the
-     column-90 inputs kept (the 505M loop's table, 5M reads), kernel ==
-     plain on them, both timed against the bytes the column must move
+     inputs of columns 50 and 90 kept (the 505M loop's tables, 5M reads),
+     kernel == plain on column 90's, both timed against the bytes the column
+     must move
+  6c. one card used by two callers at once: ``lf_stage`` on two streams,
+     one a kept column, 32 launches a stream queued behind a spin kernel so
+     that the grids overlap: every repetition == the twin, with a scratch a
+     stream (the stage loop's way) and a scratch a call (the wrapper's
+     default); with ``--parent`` the parent's ``lf_stage`` on the same hold,
+     its repetitions that differ logged, not checked. Then two one-shot
+     505M builds at once from two threads, each under its own stream
+     (counts reset just before): both BWTs == phase 6's, byte for byte
   7. the streamed path: the same 5M reads in 5 batches of 1M through
      ``StreamingBuilder`` (counts reset just before), checkpointed after 4;
      the BWT must equal phase 6's
@@ -150,7 +159,9 @@ reads the noise of the turns). The ratios are logged and not checked, so
 noise cannot fail a run; the exactness is checked everywhere. At column
 1,000 of phase 12a, ``lf_stage``'s event time a call is logged beside its
 kernel's own device duration from ``torch.profiler`` (``stage_split``),
-this commit's and the parent's.
+this commit's and the parent's, in turns. This commit's ``lf_stage`` is
+timed as the stage loop calls it, with one scratch for every call
+(``loop_stage``).
 """
 
 from __future__ import annotations
@@ -172,8 +183,11 @@ DEEP_K = 11  # the deepest prefix cache phase 10 builds
 LONG_READS, LONG_LEN, LONG_SMALL, LONG_BASE = 500_000, 1_000, 20_000, 400_000  # phase 12
 BIG_READS = 15_000_000  # phase 12e: 15M x 100 bp, 1.515G symbols
 LF_COL = 90  # phase 6b: the late column whose lf_stage inputs are kept
+STREAM_COLS, STREAM_REPS = (50, LF_COL), 32  # phase 6c: columns on two streams, launches a stream
+HOST_ROUNDS, HOST_CALLS = 8, 1000  # stage_split: the host's time a call of lf_stage
 PARENT = None  # --parent: the parent commit's loaded kernel library
 PARENT_LF = None  # --parent: the parent commit's ops/lf.py on that library
+PARENT_RACE_LF = None  # --parent: the same on a private copy of the library (phase 6c)
 
 
 def log(msg: str) -> None:
@@ -316,11 +330,16 @@ def capture(module, name, keep=lambda *a: True, clone=True):
 @contextlib.contextmanager
 def plain_lf():
     """The build's LF step through the plain twins inside the block:
-    ``ops.bcr``'s ``lf_stage``, ``lf_walk_cyclic`` and ``lf_walk_lengths``."""
+    ``ops.bcr``'s ``lf_stage`` (its kernel's scratch dropped),
+    ``lf_walk_cyclic`` and ``lf_walk_lengths``."""
     from rust_msbwt_tpu_torch.ops import bcr, lf
 
+    def stage_plain(*args, scratch=None):
+        return lf.lf_stage_plain(*args)
+
     with contextlib.ExitStack() as stack:
-        for name in ("lf_stage", "lf_walk_cyclic", "lf_walk_lengths"):
+        stack.enter_context(swapped(bcr, "lf_stage", stage_plain))
+        for name in ("lf_walk_cyclic", "lf_walk_lengths"):
             stack.enter_context(swapped(bcr, name, getattr(lf, f"{name}_plain")))
         yield
 
@@ -385,11 +404,23 @@ def hold_stage(torch, name, args, reps=20, plain_reps=3):
     rows = int(torch.unique(P.long() >> 7).numel())
     label = (f"lf_stage, column {j} of {name} ({P.numel()} reads, max P {int(P.max())}, "
              f"{rows} distinct rows of the {tab.shape[0]}-row table)")
-    res = hold(torch, label, lf.lf_stage, lf.lf_stage_plain, args,
+    stage = loop_stage(tab.device)
+    res = hold(torch, label, stage, lf.lf_stage_plain, args,
                96 * rows + 20 * P.numel() + 48, reps=reps, plain_reps=plain_reps)
     res["rows"] = rows
-    res.update(parent_lf(torch, label, "lf_stage", args, reps))
+    res.update(parent_lf(torch, label, "lf_stage", args, reps, kernel=stage))
     return res
+
+
+def loop_stage(dev):
+    """``lf_stage`` as the stage loop calls it: with one scratch of its own
+    for every call (each launch leaves it zeroed), so no call adds a
+    memset."""
+    import functools
+
+    from rust_msbwt_tpu_torch.ops import lf
+
+    return functools.partial(lf.lf_stage, scratch=lf.stage_scratch(dev))
 
 
 def walk_bytes(torch, walk, args) -> dict:
@@ -611,6 +642,24 @@ def load_parent_lf(parent, lib):
     return mod
 
 
+def private_copy(lib):
+    """A second instance of the loaded library ``lib``: a copy of its file
+    beside it, loaded anew, so any module-global device memory of its
+    kernels is its own; ``msbwt_lf_stage`` typed as in ``lib``. Phase 6c
+    races the parent's ``lf_stage`` on it, which leaves the parent's
+    library itself as it was for the holds after it."""
+    import ctypes
+    import shutil
+
+    path = lib._name
+    copy = os.path.join(os.path.dirname(path), "private_" + os.path.basename(path))
+    shutil.copyfile(path, copy)
+    new = ctypes.CDLL(copy)
+    new.msbwt_lf_stage.restype = lib.msbwt_lf_stage.restype
+    new.msbwt_lf_stage.argtypes = lib.msbwt_lf_stage.argtypes
+    return new
+
+
 def load_parent_kernels(parent):
     """The parent commit's kernel library, built from ``parent``'s own
     sources into its own ``_build`` and loaded by its own
@@ -715,37 +764,41 @@ def parent_hold(torch, name, tier, kernel, batches, reps) -> dict:
     return parent_turns(torch, name, kernel, query_call(PARENT, tier), batches, reps, "query")
 
 
-def parent_lf(torch, name, wrapper, args, reps) -> dict:
+def parent_lf(torch, name, wrapper, args, reps, kernel=None) -> dict:
     """With ``--parent``: the parent's ``ops/lf.py`` wrapper of that name
     (its host code, its library, its C contract: the walks with ``bwt``)
-    on ``args`` against this commit's (``parent_turns``); ``{}`` without a
-    parent."""
+    on ``args`` against this commit's (``parent_turns``; ``kernel`` in
+    place of this commit's wrapper when given); ``{}`` without a parent."""
     from rust_msbwt_tpu_torch.ops import lf
 
     if PARENT_LF is None:
         return {}
-    return parent_turns(torch, name, getattr(lf, wrapper), getattr(PARENT_LF, wrapper), [args],
-                        reps, "lf")
+    return parent_turns(torch, name, kernel or getattr(lf, wrapper),
+                        getattr(PARENT_LF, wrapper), [args], reps, "lf")
 
 
 def stage_split(torch, name, args, reps=50) -> dict:
     """``lf_stage`` at one kept column, split: the event time a call of
-    ``reps`` back-to-back wrapper calls (``cuda_ms``: the host's dispatch
+    ``10 * reps`` back-to-back wrapper calls (``cuda_ms``: the host's dispatch
     when it is slower than the device) and, from ``torch.profiler``
-    (``utils/profiling.trace``) over the same calls, the device duration a
-    call of the kernel and of its other device events (the parent's counts
-    memset); for this commit's wrapper and, with ``--parent``, the
-    parent's. Launches uncounted."""
-    from rust_msbwt_tpu_torch.ops import lf
+    (``utils/profiling.trace``) over ``reps`` calls, the device duration a
+    call of the kernel and of its other device events; for this commit's
+    wrapper, called as the stage loop calls it (``loop_stage``), and with
+    ``--parent`` the parent's, in turns (parent, new, new, parent; each the
+    mean of its two turns); then the host's microseconds a call of each, in
+    HOST_ROUNDS alternating rounds of HOST_CALLS calls. Launches uncounted."""
     from rust_msbwt_tpu_torch.utils.profiling import device_us, trace
 
-    fns = {"new": lf.lf_stage}
+    fns = {"new": loop_stage(args[1].device)}
+    order = ("new",)
     if PARENT_LF is not None:
         fns["parent"] = PARENT_LF.lf_stage
-    res = {}
+        order = ("parent", "new", "new", "parent")
+    got = {who: [] for who in fns}
     with uncounted():
-        for who, fn in fns.items():
-            event_ms = cuda_ms(lambda: fn(*args), reps)
+        for who in order:
+            fn = fns[who]
+            event_ms = cuda_ms(lambda: fn(*args), 10 * reps)  # host-bound: more calls
             with tempfile.TemporaryDirectory() as d, trace(d) as prof:
                 for _ in range(reps):
                     fn(*args)
@@ -755,13 +808,40 @@ def stage_split(torch, name, args, reps=50) -> dict:
             kernel = sum(device_us(e) for e in evts if "lf_stage_kernel" in e.key)
             other = sum(device_us(e) for e in evts) - kernel
             n_other = sum(e.count for e in evts if "lf_stage_kernel" not in e.key)
-            res[who] = {"event_ms": event_ms, "kernel_ms": kernel / reps * 1e-3,
-                        "other_ms": other / reps * 1e-3, "other_events": n_other / reps}
-            r = res[who]
-            log(f"[lf] lf_stage split, {name}, {who}: event time {r['event_ms']:.4f} ms a call; "
-                f"device: kernel {r['kernel_ms']:.4f} ms, other events {r['other_ms']:.4f} ms "
-                f"({r['other_events']:.1f} a call); the host's share of the event time "
-                f"{1 - (r['kernel_ms'] + r['other_ms']) / r['event_ms']:.1%}")
+            got[who].append({"event_ms": event_ms, "kernel_ms": kernel / reps * 1e-3,
+                             "other_ms": other / reps * 1e-3, "other_events": n_other / reps})
+        # the host's microseconds a call: rounds of back-to-back calls with no
+        # sync (the host is slower than this kernel), the order flipped each
+        # round; the median of the rounds
+        host = {who: [] for who in fns}
+        for rnd in range(HOST_ROUNDS):
+            for who in (sorted(fns) if rnd % 2 == 0 else sorted(fns, reverse=True)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    fns[who](*args)
+                host[who].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+    res = {}
+    for who, runs in got.items():
+        r = res[who] = {k: sum(x[k] for x in runs) / len(runs) for k in runs[0]}
+        r["turns_kernel_ms"] = [x["kernel_ms"] for x in runs]
+        r["turns_event_ms"] = [x["event_ms"] for x in runs]
+        r["host_us"] = sorted(host[who])[len(host[who]) // 2]
+        r["host_us_rounds"] = host[who]
+        log(f"[lf] lf_stage split, {name}, {who}: event time {r['event_ms']:.4f} ms a call "
+            f"(turns {' / '.join(f'{t:.4f}' for t in r['turns_event_ms'])}); device: kernel "
+            f"{r['kernel_ms']:.4f} ms (turns "
+            f"{' / '.join(f'{t:.4f}' for t in r['turns_kernel_ms'])}), other events "
+            f"{r['other_ms']:.4f} ms ({r['other_events']:.1f} a call); the host's share of the "
+            f"event time {1 - (r['kernel_ms'] + r['other_ms']) / r['event_ms']:.1%}; the host "
+            f"{r['host_us']:.2f} µs a call (median of {HOST_ROUNDS} rounds of {HOST_CALLS} "
+            f"calls: {' / '.join(f'{t:.2f}' for t in host[who])})")
+    if "parent" in res:
+        log(f"[lf] lf_stage split, {name}: parent / new = "
+            f"{res['parent']['kernel_ms'] / res['new']['kernel_ms']:.3f} (kernel), "
+            f"{res['parent']['event_ms'] / res['new']['event_ms']:.3f} (event time), "
+            f"{res['parent']['host_us'] / res['new']['host_us']:.3f} (the host a call)")
     return res
 
 
@@ -913,21 +993,139 @@ def phase_query_edges(torch, dev):
 
 def phase_lf_stage(torch, dev, reads, lengths, idx):
     """Phase 6b: phase 6's reads through the device stage loop once more,
-    keeping column LF_COL's ``lf_stage`` inputs (the 505M loop's own table
-    and carry, 5M reads); the loop's BWT == phase 6's; the kernel == the
-    plain twin on those inputs, both timed against the column's bound."""
+    keeping the ``lf_stage`` inputs of columns STREAM_COLS (the 505M loop's
+    own tables and carries, 5M reads; LF_COL among them); the loop's BWT ==
+    phase 6's; the kernel == the plain twin on column LF_COL's inputs, both
+    timed against the column's bound. Returns the hold and the kept
+    columns' arguments."""
     from rust_msbwt_tpu_torch.ops import bcr
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
 
     p = bcr._prepare_build(reads, lengths, True)
-    with capture(bcr, "lf_stage", keep=lambda j, *a: j == LF_COL) as seen:
+    with capture(bcr, "lf_stage", keep=lambda j, *a: j in STREAM_COLS) as seen:
         buf, _, _ = bcr._build_device(p, dev, merge_insert)
     check(torch.equal(buf[: idx.n], idx.bwt[: idx.n]), "505M stage loop != phase 6's BWT")
     del buf, p
-    (args,) = seen
+    check(tuple(a[0] for a in seen) == STREAM_COLS, f"kept columns {[a[0] for a in seen]}")
+    args = seen[STREAM_COLS.index(LF_COL)]
     res = hold_stage(torch, "the 505M loop", args)
     log(f"[lf] lf_stage: the access model (96 B of row + 20 B of carry a read) "
         f"{116 * args[5].numel() / 3.35e12 * 1e3:.4f} ms")
+    torch.cuda.empty_cache()
+    return res, seen
+
+
+def two_stream_stage(torch, fns, kept, want, reps):
+    """``fns[k]`` (an ``lf_stage`` wrapper) ``reps`` times on each of two
+    streams, stream k on ``kept[k]`` (a column's arguments), the launches
+    alternating with no sync between them; each stream first runs a spin
+    kernel, so the launches queue up behind it and the two queues drain on
+    the card together (launches uncounted). Returns, for each stream, how
+    many of its repetitions differ from ``want[k]`` (the twin's outputs)
+    and how many of those in ``counts_out``, and whether every launch was
+    queued before the spin ended."""
+    streams = [torch.cuda.Stream() for _ in kept]
+    outs = [[] for _ in kept]
+    gate = torch.cuda.Event()
+    with uncounted():
+        for k, s in enumerate(streams):  # each library's kernel loaded before the spins
+            with torch.cuda.stream(s):
+                fns[k](*kept[k])
+        torch.cuda.synchronize()
+        for s in streams:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(2_000_000_000)  # ~1 s: longer than the launches' enqueue
+        gate.record(streams[-1])
+        for _ in range(reps):
+            for k, s in enumerate(streams):
+                with torch.cuda.stream(s):
+                    outs[k].append(fns[k](*kept[k]))
+        held = not gate.query()  # every launch queued while the spin ran
+        torch.cuda.synchronize()
+    bad = [[not all(torch.equal(g, w) for g, w in zip(o, want[k])) for o in outs[k]]
+           for k in range(len(kept))]
+    bad_counts = [sum(not torch.equal(o[4], want[k][4]) for o in outs[k])
+                  for k in range(len(kept))]
+    return [sum(b) for b in bad], bad_counts, held
+
+
+def phase_two_streams(torch, dev, reads, lengths, idx, kept):
+    """Phase 6c: concurrent use of one card. (a) ``lf_stage`` on two
+    streams at once, stream k on column STREAM_COLS[k]'s kept 505M inputs,
+    STREAM_REPS launches a stream: every repetition == the twin; with
+    ``--parent`` the parent's ``lf_stage`` on the same hold (on a private
+    copy of its library, ``private_copy``), its repetitions that differ
+    logged, not checked (a race need not fire in every run). (b) two one-shot ``build_msbwt_with_index`` of phase 6's
+    reads at once, from two threads each under its own stream (counts reset
+    just before): both BWTs == phase 6's, byte for byte; their wall beside
+    one build's on the default stream just before. The launch counters
+    are plain ``+=`` and may lose increments under threads, so the builds
+    are checked by their bytes and their counts only for being non-zero."""
+    import threading
+
+    from rust_msbwt_tpu_torch.ops import lf
+    from rust_msbwt_tpu_torch.ops.bcr import build_msbwt_with_index
+    from rust_msbwt_tpu_torch.utils.profiling import timed
+
+    want = [lf.lf_stage_plain(*a) for a in kept]
+    res = {"columns": list(STREAM_COLS), "reps": STREAM_REPS}
+    holds = {"new, a scratch a stream": [loop_stage(dev) for _ in kept],  # the stage loop's way
+             "new, a scratch a call": [lf.lf_stage] * len(kept)}
+    if PARENT_RACE_LF is not None:
+        holds["parent"] = [PARENT_RACE_LF.lf_stage] * len(kept)
+    for who, fns in holds.items():
+        bad, bad_counts, held = two_stream_stage(torch, fns, kept, want, STREAM_REPS)
+        res[who] = {"differ": bad, "differ_in_counts": bad_counts, "queued_behind_spin": held}
+        log(f"[streams] lf_stage ({who}) on two streams at columns {STREAM_COLS} of the 505M "
+            f"loop, {STREAM_REPS} launches a stream (all queued behind the spin: {held}): "
+            f"{bad} repetitions differ from the twin ({bad_counts} in counts_out)"
+            + (" (logged, not checked)" if who == "parent" else ""))
+        if who != "parent":
+            check(sum(bad) == 0, f"lf_stage ({who}) on two streams != the twin: {bad}")
+    del want
+    torch.cuda.empty_cache()
+
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    out, errors = [None, None], []
+    gate = threading.Barrier(2)
+
+    def run(k):
+        try:
+            with torch.cuda.stream(streams[k]):
+                gate.wait()
+                out[k] = build_msbwt_with_index(reads, lengths, device=dev)[0]
+                streams[k].synchronize()
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+
+    one_s, _ = timed(lambda: build_msbwt_with_index(reads, lengths, device=dev))
+    torch.cuda.empty_cache()
+    # --- the two-stream path: counts reset just before, read just after ---
+    reset_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    launches = path_counts()
+    # --- end of the two-stream path ---
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    for k, got in enumerate(out):
+        check(got.n == idx.n and torch.equal(got.bwt[: idx.n], idx.bwt[: idx.n]),
+              f"build {k} of two on two streams != phase 6's BWT")
+    check(launches["merge_insert"] > 0 and launches["lf_stage"] > 0,
+          f"the two builds: merge kernel launches {launches['merge_insert']}, "
+          + lf_line(launches))
+    log(f"[streams] two 505M builds at once on two streams (two threads): {wall:.3f} s for "
+        f"both (one build alone {one_s:.3f} s); both BWTs == phase 6's, byte for byte; "
+        f"merge kernel launches {launches['merge_insert']} (2 x {READ_LEN + 1} if no "
+        f"increment was lost), " + lf_line(launches))
+    res.update({"builds_wall_s": wall, "one_build_s": one_s})
+    del out
     torch.cuda.empty_cache()
     return res
 
@@ -1935,9 +2133,11 @@ def main(argv=None) -> int:
     log(ptxas.strip() or "(library up to date: not rebuilt)")
     log(f"[health] {json.dumps(session_health())}")
 
-    global PARENT, PARENT_LF
+    global PARENT, PARENT_LF, PARENT_RACE_LF
     PARENT = load_parent_kernels(args.parent)
     PARENT_LF = load_parent_lf(args.parent, PARENT)
+    if PARENT is not None:
+        PARENT_RACE_LF = load_parent_lf(args.parent, private_copy(PARENT))
     max_err, times = phase_kernel(torch, dev)
     phase_lf_edges(torch, dev)
     phase_query_edges(torch, dev)
@@ -1947,7 +2147,9 @@ def main(argv=None) -> int:
     reads, lengths, kmers = ecoli_config(np)
     main_path, idx, packed, counts, cache8, rle = phase_main(torch, np, dev, reads,
                                                              lengths, kmers)
-    stage = phase_lf_stage(torch, dev, reads, lengths, idx)
+    stage, kept = phase_lf_stage(torch, dev, reads, lengths, idx)
+    phase_two_streams(torch, dev, reads, lengths, idx, kept)
+    del kept
     with tempfile.TemporaryDirectory() as d:
         ckpt = os.path.join(d, "stream_ckpt.npy")
         stream = phase_stream(torch, np, dev, reads, lengths, idx, ckpt)

@@ -110,7 +110,7 @@ def load():
             lib.msbwt_merge_insert.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i64, vp]
             i32 = ctypes.c_int
             for name, args in (
-                ("msbwt_lf_stage", [vp] * 11 + [i64, i32, i32, vp]),
+                ("msbwt_lf_stage", [vp] * 12 + [i64, i32, i32, vp]),
                 ("msbwt_lf_walk_cyclic", [vp] * 6 + [i64, i64, i32, vp]),
                 ("msbwt_lf_walk_lengths", [vp] * 5 + [i64, i64, vp]),
                 ("msbwt_lf_walk_extract", [vp] * 5 + [i64, i32, vp]),

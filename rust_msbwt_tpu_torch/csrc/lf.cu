@@ -50,12 +50,15 @@
 // * lf_stage: one thread a read (the rank is rank_at), in a grid-stride
 //   loop of at most kMaxStageBlocks blocks. Each warp counts its active
 //   reads by symbol with six ballots, each block adds its warp totals in
-//   shared memory and then into six device-wide accumulators; the last
-//   block done (a ticket) writes counts_out = counts + the accumulators and
-//   clears them and the ticket for the next launch. So a column is one
-//   device event: no memset of counts_out, and no block reads counts that
-//   another is adding into. Launches of lf_stage on one device run one at a
-//   time (one stream: the stage loop's).
+//   shared memory and then into six accumulators of the caller's scratch
+//   (int32 [kStageScratch]: the six counts, a ticket and a pad word, zeroed
+//   before the first launch); the last block done (the ticket) writes
+//   counts_out = counts + the accumulators and clears them and the ticket
+//   for the next launch. So a column is one device event: no memset of
+//   counts_out or of the scratch, and no block reads counts that another is
+//   adding into. Launches that share a scratch must run one at a time (the
+//   stage loop's, on its stream); concurrent callers each pass their own,
+//   and the file keeps no state of its own across launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,12 +72,11 @@ constexpr int kMaxStageBlocks = 4096;  // lf_stage grid cap (grid-stride loop)
 constexpr int kQuad = 4;               // lanes a walker
 constexpr int kLfPerLane = 4;          // LF pass: positions a lane (one int4 store)
 
+constexpr int kStageScratch = 8;       // lf_stage scratch: six counts, the ticket, a pad
+static_assert(kSyms + 1 <= kStageScratch, "lf_stage's scratch holds the counts and the ticket");
+
 enum WalkMode { kCyclic, kExtract };
 constexpr int kChase = 2;              // read-length walk: walkers a thread
-
-// lf_stage's symbol counts of the running launch, and its blocks done.
-__device__ int g_stage_counts[kSyms];
-__device__ unsigned g_stage_done;
 
 // The column's C array into s_c (C[0] = 0, C[f >= 1] = nst +
 // counts[1..f-1]) and s_bump zeroed. Every thread of the block calls it.
@@ -93,12 +95,15 @@ __device__ __forceinline__ void stage_setup(int* s_c, int* s_bump,
 }
 
 // The block's warp totals acc (lane 0 of each warp holds its warp's) into
-// the launch's accumulators, through s_bump (zeroed shared memory); the
-// last block done writes counts_out = counts + the accumulators and clears
-// them and the ticket. Every thread of the block calls it.
+// the launch's accumulators scratch[0..5], through s_bump (zeroed shared
+// memory), and a ticket scratch[6]; the last block done writes counts_out =
+// counts + the accumulators and clears them and the ticket. Every thread of
+// the block calls it.
 __device__ __forceinline__ void add_stage_counts(const int (&acc)[kSyms], int* s_bump,
                                                  const int32_t* __restrict__ counts,
-                                                 int32_t* __restrict__ counts_out) {
+                                                 int32_t* __restrict__ counts_out,
+                                                 int32_t* __restrict__ scratch) {
+  unsigned* done = (unsigned*)(scratch + kSyms);
   __shared__ bool s_last;
   if ((threadIdx.x & 31) == 0) {
 #pragma unroll
@@ -107,29 +112,30 @@ __device__ __forceinline__ void add_stage_counts(const int (&acc)[kSyms], int* s
   }
   __syncthreads();
   if (threadIdx.x < kSyms) {
-    if (s_bump[threadIdx.x]) atomicAdd(&g_stage_counts[threadIdx.x], s_bump[threadIdx.x]);
+    if (s_bump[threadIdx.x]) atomicAdd(&scratch[threadIdx.x], s_bump[threadIdx.x]);
     __threadfence();  // this block's adds before its ticket
   }
   __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(&g_stage_done, 1u) == gridDim.x - 1;
+  if (threadIdx.x == 0) s_last = atomicAdd(done, 1u) == gridDim.x - 1;
   __syncthreads();
   if (s_last && threadIdx.x < kSyms) {
     __threadfence();
-    counts_out[threadIdx.x] = counts[threadIdx.x] + atomicExch(&g_stage_counts[threadIdx.x], 0);
-    if (threadIdx.x == 0) atomicExch(&g_stage_done, 0u);
+    counts_out[threadIdx.x] = counts[threadIdx.x] + atomicExch(&scratch[threadIdx.x], 0);
+    if (threadIdx.x == 0) atomicExch(done, 0u);
   }
 }
 
 // One BCR column j for N reads: f = prev_v, q = C[f] + rank(f, P), active =
 // j <= len + 1; P and prev_v move to (q, v) where active; counts_out =
-// counts + the active v's.
+// counts + the active v's (summed in scratch, add_stage_counts).
 __global__ void __launch_bounds__(kThreads)
 lf_stage_kernel(const int32_t* __restrict__ table, const uint8_t* __restrict__ v,
                 const int32_t* __restrict__ lengths, const int32_t* __restrict__ P,
                 const uint8_t* __restrict__ prev_v, const int32_t* __restrict__ counts,
                 int32_t* __restrict__ q, uint8_t* __restrict__ active,
                 int32_t* __restrict__ P_out, uint8_t* __restrict__ prev_out,
-                int32_t* __restrict__ counts_out, int64_t N, int j, int nst) {
+                int32_t* __restrict__ counts_out, int32_t* __restrict__ scratch, int64_t N,
+                int j, int nst) {
   __shared__ int s_c[kSyms];
   __shared__ int s_bump[kSyms];
   stage_setup(s_c, s_bump, counts, nst);
@@ -154,7 +160,7 @@ lf_stage_kernel(const int32_t* __restrict__ table, const uint8_t* __restrict__ v
 #pragma unroll
     for (int s = 0; s < kSyms; ++s) acc[s] += __popc(__ballot_sync(kFull, sym == s));
   }
-  add_stage_counts(acc, s_bump, counts, counts_out);
+  add_stage_counts(acc, s_bump, counts, counts_out, scratch);
 }
 
 struct WalkArgs {
@@ -426,11 +432,14 @@ extern "C" {
 // One BCR column: table i32 [rows, 32] (16 B-aligned), v = stage-view row j
 // u8 [N], lengths i32 [N], P i32 [N], prev_v u8 [N], counts i32 [6] ->
 // q i32 [N], active bool [N], P_out i32 [N], prev_out u8 [N], counts_out
-// i32 [6] (apart from counts). Launches on `stream`; returns
-// cudaGetLastError().
+// i32 [6] (apart from counts). scratch i32 [8] is the caller's, zeroed
+// before its first launch and left zeroed by each (one scratch a stream of
+// launches: two launches that may overlap need two). Launches on `stream`;
+// returns cudaGetLastError().
 int msbwt_lf_stage(const void* table, const void* v, const void* lengths, const void* P,
                    const void* prev_v, const void* counts, void* q, void* active, void* P_out,
-                   void* prev_out, void* counts_out, int64_t N, int j, int nst, void* stream) {
+                   void* prev_out, void* counts_out, void* scratch, int64_t N, int j, int nst,
+                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (N == 0) {
     cudaMemcpyAsync(counts_out, counts, kSyms * sizeof(int32_t), cudaMemcpyDeviceToDevice, st);
@@ -441,7 +450,7 @@ int msbwt_lf_stage(const void* table, const void* v, const void* lengths, const 
   lf_stage_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
       (const int32_t*)table, (const uint8_t*)v, (const int32_t*)lengths, (const int32_t*)P,
       (const uint8_t*)prev_v, (const int32_t*)counts, (int32_t*)q, (uint8_t*)active,
-      (int32_t*)P_out, (uint8_t*)prev_out, (int32_t*)counts_out, N, j, nst);
+      (int32_t*)P_out, (uint8_t*)prev_out, (int32_t*)counts_out, (int32_t*)scratch, N, j, nst);
   return (int)cudaGetLastError();
 }
 

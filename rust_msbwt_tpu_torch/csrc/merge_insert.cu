@@ -93,6 +93,7 @@ constexpr int kSortThreads = 1024;     // sort_tiles
 constexpr int kSortBatch = 8;          // entries a sort_tiles thread loads at once
 constexpr int kStateStride = 8;        // u64 look-back words per tile (6 used)
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;        // merge_tiles' carveout: one flag a device
 constexpr unsigned long long kAggregate = 1ull << 32;  // flag: the tile's own sum
 constexpr unsigned long long kInclusive = 2ull << 32;  // flag: prefix through the tile
 
@@ -690,11 +691,16 @@ int msbwt_merge_insert(const void* old, const void* q, const void* v, const void
                                                         s + L.off, n_tiles, n_sb);
   }
   if (n_tiles > 0) {
-    static bool carveout = false;  // shared memory over L1: blocks per SM are bound by it
-    if (!carveout) {
+    // shared memory over L1 (blocks per SM are bound by it), once a device:
+    // the attribute is the current device's, which the caller has made the
+    // tensors' (a race between two host threads only sets it twice)
+    static bool carveout[kMaxDevices] = {};
+    int d = 0;
+    cudaGetDevice(&d);
+    if (d < 0 || d >= kMaxDevices || !carveout[d]) {
       cudaFuncSetAttribute(merge_tiles, cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
-      carveout = true;
+      if (d >= 0 && d < kMaxDevices) carveout[d] = true;
     }
     merge_tiles<<<(unsigned)n_tiles, kThreads, 0, st>>>(
         (const uint8_t*)old, s + L.off, s + L.bucket, (uint8_t*)out, (int32_t*)table,

@@ -65,6 +65,7 @@ from rust_msbwt_tpu_torch.ops.lf import (
     lf_stage,
     lf_walk_cyclic,
     lf_walk_lengths,
+    stage_scratch,
 )
 from rust_msbwt_tpu_torch.ops.merge_insert import ROW, merge_insert
 from rust_msbwt_tpu_torch.ops.packed_rank import PackedOccIndex, rank_packed
@@ -450,15 +451,17 @@ def pair_slots(q1, v1, active1, active2, order1, inv1, base2):
     return f1, q2
 
 
-def _stage_step2(j, tab, cap, nst, cols, lengths, P, counts, prev_v):
+def _stage_step2(j, tab, cap, nst, cols, lengths, P, counts, prev_v, *, scratch=None):
     """Two BCR columns (j, j + 1) through one pass: the port of the JAX
     package's ``_pallas_stage_step2``. Column j+1's rank over the buffer
     after column j's inserts comes from the current table without that
     buffer: ``rank_B1(s, q1) = rank_B0(s, q1 - c) + #{same-symbol inserts
     below q1}`` (``pair_order``, ``pair_slots``). Reads inactive in column
     j+1 (odd tails of ragged reads) insert only ``v1``. Returns the pass's
-    ``(q, v, active)`` over 2N slots and the carry after it; no host sync."""
-    q1, v1, active1, _, counts1, _ = lf_stage(j, tab, nst, cols, lengths, P, counts, prev_v)
+    ``(q, v, active)`` over 2N slots and the carry after it; no host sync.
+    ``scratch`` is column j's ``lf_stage`` scratch."""
+    q1, v1, active1, _, counts1, _ = lf_stage(j, tab, nst, cols, lengths, P, counts, prev_v,
+                                              scratch=scratch)
     active2 = j + 1 <= lengths + 1  # implies active1
     v2 = cols[j + 1]
     order1, inv1, old_pos = pair_order(q1, active1, cap)
@@ -479,7 +482,8 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
     when the caller holds it), one column a pass or, where ``build_radix``
     picks 2, two. Returns the final buffer (uint8 [aligned n_cap], PAD past
     n_cap), its packed table (int32 [aligned n_cap / 128 + 1, 32]) and the
-    symbol counts."""
+    symbol counts. Every column's ``lf_stage`` gets the build's own scratch,
+    so builds on two streams share no accumulator."""
     N, L, n0, n_cap = p["N"], p["L"], p["n0"], p["n_cap"]
     cols = torch.from_numpy(p["cols"]).to(device)
     lengths = torch.from_numpy(p["lengths"]).to(device)
@@ -495,6 +499,7 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
             for _ in range(2)]
     table = torch.empty((full_cap // BIN + 1, ROW), dtype=_I32, device=device)
     counts = torch.zeros(VC_LEN, dtype=_I32, device=device)
+    scratch = stage_scratch(device)
     if n0:
         bufs[0][:n0] = base
         # six compare-sums: no [n0]-sized int64 temporary
@@ -521,11 +526,11 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
         while j < jb:
             if radix == 2 and j + 1 < jb:
                 q, v, active, P, counts, prev_v = _stage_step2(
-                    j, tab, cap, nst, cols, lengths, P, counts, prev_v)
+                    j, tab, cap, nst, cols, lengths, P, counts, prev_v, scratch=scratch)
                 j += 2
             else:
                 q, v, active, P, counts, prev_v = lf_stage(
-                    j, tab, nst, cols, lengths, P, counts, prev_v)
+                    j, tab, nst, cols, lengths, P, counts, prev_v, scratch=scratch)
                 j += 1
             cur, m = run_pass(cur, cap, q, v, active)
             n_valid = n_valid + m

@@ -10,8 +10,9 @@ host launches a column or a walk step. Here each is one call:
   ``q = C[f] + rank(f, P)`` for its previous symbol ``f = prev_v`` at its
   previous slot ``P``, off one table row; ``active = j <= len + 1``; the
   carry ``P``, ``prev_v`` and the symbol counts after the column; one
-  kernel, the counts summed inside it (no memset). ``lf_stage_plain`` is
-  the plain version.
+  kernel, the counts summed inside it in the caller's ``int32 [8]``
+  scratch, which each launch leaves zeroed (no memset). ``lf_stage_plain``
+  is the plain version.
 * **lf_walk** — a batched LF walk run to its end inside one call. Four walks
   share the kernel file: ``lf_walk_cyclic`` (the extend's cyclic terminator
   search, symbols from the stage view) and ``lf_walk_extract`` (reads
@@ -24,8 +25,10 @@ host launches a column or a walk step. Here each is one call:
   where the plain version checks the host every ``LF_BLOCK`` steps. Each
   has a ``*_plain`` twin, which reads the BWT.
 
-On a CUDA tensor a wrapper launches its kernel on the current stream (or
-raises); on a CPU tensor it runs the plain version. Each wrapper counts its
+On a CUDA tensor a wrapper launches its kernel on its tensors' card, on
+that card's current stream (or raises); on a CPU tensor it runs the plain
+version. The kernels keep no state across launches: two streams or host
+threads may call the wrappers at once. Each wrapper counts its
 calls that launch in ``.launches``. Every output is an integer and equal
 between the two, bit for bit.
 """
@@ -42,6 +45,7 @@ from rust_msbwt_tpu_torch.ops.rank import BIN
 
 _I32 = torch.int32
 LF_BLOCK = 32  # plain read-length walk: LF steps between two host checks
+STAGE_SCRATCH = 8  # lf_stage's scratch: six counts, the kernel's ticket, a pad
 
 
 def _cvec(counts: torch.Tensor, n_strings_total: int) -> torch.Tensor:
@@ -94,11 +98,14 @@ def _device_of(table: torch.Tensor, lanes: int = ROW) -> torch.device | None:
 
 def _launch(fn_name: str, *args, dev: torch.device):
     """Call the library's ``fn_name`` with tensors as their data pointers,
-    on ``dev``'s current stream; raise if the launch failed."""
+    with ``dev`` the runtime's current device and on its current stream;
+    raise if the launch failed."""
     from rust_msbwt_tpu_torch import _kernels
 
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = getattr(_kernels.load(), fn_name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev.index):  # by index: a torch.device costs more host time
+        err = getattr(_kernels.load(), fn_name)(*args,
+                                                torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
 
@@ -118,9 +125,14 @@ def lf_stage_plain(j, tab, nst, cols, lengths, P, counts, prev_v):
             torch.where(active, v, prev_v))
 
 
+def stage_scratch(device) -> torch.Tensor:
+    """A zeroed scratch for ``lf_stage`` on ``device``: int32 ``[8]``."""
+    return torch.zeros(STAGE_SCRATCH, dtype=_I32, device=device)
+
+
 def lf_stage(j: int, tab: torch.Tensor, nst: int, cols: torch.Tensor,
              lengths: torch.Tensor, P: torch.Tensor, counts: torch.Tensor,
-             prev_v: torch.Tensor):
+             prev_v: torch.Tensor, *, scratch: torch.Tensor | None = None):
     """One BCR column j, as ``lf_stage_plain``: ``(q, v, active, P, counts,
     prev_v)``, every output a new tensor but ``v`` (the view ``cols[j]``).
 
@@ -129,6 +141,12 @@ def lf_stage(j: int, tab: torch.Tensor, nst: int, cols: torch.Tensor,
     ``prev_v`` uint8 ``[N]``, ``counts`` int32 ``[6]``; ``nst`` the strings
     in all. On CUDA tensors one kernel launch (it sums the new counts
     itself: no memset); no host sync.
+
+    ``scratch`` (``stage_scratch``) holds the kernel's accumulators; each
+    launch leaves it zeroed, so a caller that launches in order on one
+    stream (the stage loop) passes one scratch to every column. Launches
+    that may overlap (two streams) need a scratch each. Without one the
+    call zeroes its own (one memset more). Unused on CPU tensors.
     """
     dev = _device_of(tab)
     if dev is None:
@@ -141,6 +159,10 @@ def lf_stage(j: int, tab: torch.Tensor, nst: int, cols: torch.Tensor,
     _check("P", P, _I32, (N,), dev)
     _check("prev_v", prev_v, torch.uint8, (N,), dev)
     _check("counts", counts, _I32, (VC_LEN,), dev)
+    if scratch is None:
+        scratch = stage_scratch(dev)
+    else:
+        _check("scratch", scratch, _I32, (STAGE_SCRATCH,), dev)
     if not 0 <= nst < 2**31:
         raise ValueError("lf_stage: the string count must fit int32")
     v = cols[j]
@@ -150,7 +172,7 @@ def lf_stage(j: int, tab: torch.Tensor, nst: int, cols: torch.Tensor,
     counts_out = torch.empty(VC_LEN, dtype=_I32, device=dev)
     active, prev_out = flags[0].view(torch.bool), flags[1]
     _launch("msbwt_lf_stage", tab, v, lengths, P, prev_v, counts, q, active, P_out,
-            prev_out, counts_out, N, j, nst, dev=dev)
+            prev_out, counts_out, scratch, N, j, nst, dev=dev)
     lf_stage.launches += 1
     return q, v, active, P_out, counts_out, prev_out
 

@@ -141,8 +141,8 @@ def merge_insert(old: torch.Tensor, q: torch.Tensor, v: torch.Tensor,
     the number of active inserts, a device scalar (no host sync).
     ``out`` / ``table`` may be given (same shapes).
 
-    On CUDA tensors this launches the Hopper kernel on the current stream
-    (and raises if it cannot); its scratch is O(N + n / 16384) int32. On CPU
+    On CUDA tensors this launches the Hopper kernel on their card's current
+    stream, with that card the current device (and raises if it cannot); its scratch is O(N + n / 16384) int32. On CPU
     tensors it runs ``merge_insert_slots``, the plain version.
     """
     if old.device.type == "cpu":
@@ -168,11 +168,12 @@ def merge_insert(old: torch.Tensor, q: torch.Tensor, v: torch.Tensor,
 
     lib = _kernels.load()
     scratch = torch.empty(lib.msbwt_merge_insert_scratch_len(n, N), dtype=_I32, device=dev)
-    err = lib.msbwt_merge_insert(
-        old.data_ptr(), q.data_ptr(), v.data_ptr(), active.data_ptr(), out.data_ptr(),
-        table.data_ptr(), scratch.data_ptr(), n, N,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev.index):  # the kernel runs on the runtime's current device
+        err = lib.msbwt_merge_insert(
+            old.data_ptr(), q.data_ptr(), v.data_ptr(), active.data_ptr(), out.data_ptr(),
+            table.data_ptr(), scratch.data_ptr(), n, N,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"merge_insert kernel launch failed: CUDA error {err}")
     merge_insert.launches += 1

@@ -21,8 +21,8 @@ launch, one thread a query with its ``lo`` / ``hi`` in registers:
 Both take the optional prefix cache (``KmerCache`` of depth ``cache_k``)
 as the plain versions do: the seed is the cache range of the last
 ``cache_k`` symbols, the search starts at step ``cache_k``. On a CUDA
-tensor a wrapper checks its inputs and launches its kernel on the current
-stream (or raises); the query lengths are read per thread, so no host sync
+tensor a wrapper checks its inputs and launches its kernel on their card's
+current stream, with that card the current device (or raises); the query lengths are read per thread, so no host sync
 comes before the caller's copy of the result. On a CPU tensor it runs the
 plain twin. Each wrapper counts its kernel launches in ``.launches``; a
 batch of no queries launches nothing. Every output is an integer and equal

@@ -15,7 +15,10 @@ n % 128 == 0, caches 6^8 / 6^9 / 6^11, 1.1M queries, warps that mix
 queries that stop early with full ones and one-symbol tails, batch sizes
 at the edges of the kernels' lane groups, warps and blocks, with nothing
 written past the batch), ``count_batch``'s split of short queries, and
-bad inputs refused. Bit-exact throughout
+bad inputs refused; ``lf_stage`` on two streams of one card at once (from
+one host thread and from two), and a build, an extend and both query
+tiers with every tensor on ``cuda:1`` while ``cuda:0`` is the current
+device (skipped below two cards). Bit-exact throughout
 (tolerance 0: every output is an integer).
 
 Marked ``gpu``; without a card every test skips (the decision is made in a
@@ -680,21 +683,147 @@ def test_lf_walk_edges_match_plain(cuda, edge, walk):
 
 def test_lf_stage_repeats_keep_counts(cuda):
     """lf_stage many times in a row on reused inputs, at grid sizes of one
-    block, a few and the cap: every output, counts_out above all (the
-    kernel sums the counts in device-wide accumulators that its last block
-    clears), == the plain twin's each time, one launch a call."""
-    from rust_msbwt_tpu_torch.ops.lf import lf_stage, lf_stage_plain
+    block, a few and the cap, with one scratch for every call (the stage
+    loop's way): every output, counts_out above all (the kernel sums the
+    counts in the scratch's accumulators, which its last block clears), ==
+    the plain twin's each time, one launch a call; the scratch ends zeroed."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_stage, lf_stage_plain, stage_scratch
 
     cases = [lf_stage_args(lf_stage_case(kind, len(kind), N=N), cuda)
              for kind, N in (("ragged", None), ("one", None), ("ragged", 1_100_003),
                              ("inactive", None))]
     want = [lf_stage_plain(*args) for args in cases]
+    scratch = stage_scratch(cuda)
     before = lf_stage.launches
     for k in range(40):
-        got = lf_stage(*cases[k % len(cases)])
+        got = lf_stage(*cases[k % len(cases)], scratch=scratch)
         assert all(torch.equal(g, w) for g, w in zip(got, want[k % len(cases)])), k
     torch.cuda.synchronize()
     assert lf_stage.launches == before + 40
+    assert not scratch.any()
+
+
+# Two lf_stage grids of ~100k reads (391 blocks of 256 threads each) fit on
+# an H100 at once (132 SMs x 8 such blocks), so launches on two streams
+# overlap on the card. The launches queue behind a spin of STREAM_GATE
+# cycles (~1 s on an H100) on each stream: 512 wrapper calls that keep
+# their outputs took 0.2-0.8 s to enqueue there, and launches that do not
+# queue up run one at a time (the host is slower than the kernel).
+STREAM_READS, STREAM_REPS, STREAM_GATE = 100_003, 256, 2_000_000_000
+
+
+def _two_stream_launches(cuda, threaded, own_scratch):
+    """``STREAM_REPS`` ``lf_stage`` launches on each of two streams, each
+    stream on its own inputs (two seeds), alternating with no sync between
+    launches; each stream first runs a spin kernel, so the launches queue
+    up behind it and the two queues drain on the card together. From one
+    thread, or from two, each under its own ``torch.cuda.stream``. Returns
+    each stream's inputs and outputs, and whether every launch was queued
+    before the spins ended."""
+    import threading
+
+    from rust_msbwt_tpu_torch.ops.lf import lf_stage
+
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    cases = [lf_stage_args(lf_stage_case("ragged", seed, N=STREAM_READS), cuda)
+             for seed in (301, 302)]
+    torch.cuda.synchronize()
+    outs, scratch = [[], []], [None, None]
+
+    def launch(k):
+        kw = {"scratch": scratch[k]} if own_scratch else {}
+        outs[k].append(lf_stage(*cases[k], **kw))
+
+    lf_stage(*cases[0])  # the library built and its kernel loaded before the spins
+    torch.cuda.synchronize()
+    for k, s in enumerate(streams):
+        with torch.cuda.stream(s):
+            scratch[k] = torch.zeros(8, dtype=torch.int32, device=cuda)  # lf_stage's
+            torch.cuda._sleep(STREAM_GATE)
+    gate = torch.cuda.Event()
+    gate.record(streams[1])
+    if threaded:
+        start = threading.Barrier(2)
+
+        def run(k):
+            with torch.cuda.stream(streams[k]):
+                start.wait()
+                for _ in range(STREAM_REPS):
+                    launch(k)
+
+        threads = [threading.Thread(target=run, args=(k,)) for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    else:
+        for _ in range(STREAM_REPS):
+            for k, s in enumerate(streams):
+                with torch.cuda.stream(s):
+                    launch(k)
+    held = not gate.query()  # every launch queued while the spins ran
+    torch.cuda.synchronize()
+    return cases, outs, held
+
+
+@pytest.mark.parametrize("own_scratch", [False, True], ids=["call_scratch", "stream_scratch"])
+@pytest.mark.parametrize("threaded", [False, True], ids=["one_thread", "two_threads"])
+def test_lf_stage_two_streams_match_plain(cuda, threaded, own_scratch):
+    """lf_stage on two streams of one card at once (from one thread, or
+    from two each under its own stream): every launch's outputs, counts_out
+    above all, == lf_stage_plain on that stream's inputs. Overlapping grids
+    must share no accumulator: with a scratch a call (the default) or one a
+    stream (the stage loop's way). Failures are counted over all launches."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_stage_plain
+
+    cases, outs, held = _two_stream_launches(cuda, threaded, own_scratch)
+    bad = []
+    for k, args in enumerate(cases):
+        want = lf_stage_plain(*args)
+        assert len(outs[k]) == STREAM_REPS
+        for rep, got in enumerate(outs[k]):
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                bad.append((k, rep, torch.equal(got[4], want[4])))
+    assert not bad, (f"{len(bad)} of {2 * STREAM_REPS} launches differ from the twin "
+                     f"({sum(not c for *_, c in bad)} in counts_out; all queued behind "
+                     f"the spin: {held}); first {bad[:5]}")
+
+
+def test_kernels_on_second_card_match_first(cuda):
+    """With cuda:0 the current device, a build, a sorted extend (its two
+    walks) and k-mer counts through both query tiers with every tensor on
+    cuda:1: each kernel launched there, every output == the same run on
+    cuda:0. Skips below two cards."""
+    from rust_msbwt_tpu_torch.ops import lf, query
+    from rust_msbwt_tpu_torch.ops.packed_rank import count_kmers_packed
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    base_reads, base_lens = _ragged(900, 81)
+    reads, lengths = _ragged(700, 82)
+    kmers = reads[lengths >= 8][:200, :8]  # the first 8 symbols of reads of 8 or more
+    out = {}
+    torch.cuda.set_device(0)
+    for dev in ("cuda:0", "cuda:1"):
+        before = (merge_mod.merge_insert.launches, lf.lf_stage.launches,
+                  lf.lf_walk_launches(), query.kmer_ranges_packed.launches,
+                  query.kmer_counts_pair.launches)
+        base, _ = build_msbwt_with_index(base_reads, base_lens, device=dev)
+        idx, packed = build_msbwt_with_index(reads, lengths, True, base.bwt[: base.n], 900,
+                                             device=dev)
+        packed_counts = count_kmers_packed(packed, kmers)
+        pair_counts = count_kmers_pair(build_pair_index(idx), kmers)
+        torch.cuda.synchronize(dev)
+        after = (merge_mod.merge_insert.launches, lf.lf_stage.launches,
+                 lf.lf_walk_launches(), query.kmer_ranges_packed.launches,
+                 query.kmer_counts_pair.launches)
+        assert all(a > b for a, b in zip(after, before)), (dev, before, after)
+        assert torch.cuda.current_device() == 0
+        assert idx.bwt.device == torch.device(dev)
+        out[dev] = (idx.bwt.cpu(), packed.table.cpu(), np.asarray(packed_counts),
+                    np.asarray(pair_counts))
+    for a, b in zip(out["cuda:0"], out["cuda:1"]):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_lf_walk_lengths_kernel_raises_on_open_walk(cuda):
@@ -720,6 +849,12 @@ def test_lf_kernels_reject_bad_input(cuda):
         lf_stage(j, tab, nst, cols, lengths, P.cpu(), counts, prev_v)
     with pytest.raises(ValueError):
         lf_stage(cols.shape[0], tab, nst, cols, lengths, P, counts, prev_v)
+    args = (j, tab, nst, cols, lengths, P, counts, prev_v)
+    for exc, scratch in ((TypeError, torch.zeros(8, dtype=torch.int64, device=cuda)),
+                         (ValueError, torch.zeros(7, dtype=torch.int32, device=cuda)),
+                         (ValueError, torch.zeros(8, dtype=torch.int32))):
+        with pytest.raises(exc):
+            lf_stage(*args, scratch=scratch)
 
 
 @pytest.mark.parametrize("radix", [1, 2])

@@ -124,6 +124,73 @@ def test_lf_stage_edges_match_oracle_and_jax(kind):
     assert np.array_equal(got[0].numpy(), np.asarray(jq))
 
 
+@pytest.mark.parametrize("radix", [1, 2])
+def test_build_passes_one_scratch_to_every_column(radix, monkeypatch):
+    """The stage loop's wiring of lf_stage's scratch: one build passes one
+    zeroed int32 [8] scratch to every column (L calls at radix 1, one a
+    column pair at ``MSBWT_TPU_RADIX=2``), a second build its own; both
+    BWTs equal the JAX package's build of the same reads."""
+    monkeypatch.setenv("MSBWT_TPU_RADIX", str(radix))
+    real, seen = bcr.lf_stage, []
+
+    def recording(*args, **kw):
+        seen.append(kw["scratch"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(bcr, "lf_stage", recording)
+    r = np.random.default_rng(21 + radix)
+    scratches = []
+    for _ in range(2):
+        reads_l = [r.integers(1, 6, r.integers(1, 12)).astype(np.uint8) for _ in range(30)]
+        reads, lengths = bcr.encode_reads(reads_l)
+        seen.clear()
+        idx, _ = bcr.build_msbwt_with_index(reads, lengths, device="cpu")
+        L = reads.shape[1]
+        assert len(seen) == (L if radix == 1 else -(-L // 2))
+        assert all(t is seen[0] for t in seen)
+        assert seen[0].dtype == torch.int32 and tuple(seen[0].shape) == (8,)
+        assert not seen[0].any()
+        scratches.append(seen[0])
+        want = jbcr.build_msbwt(*jbcr.encode_reads(reads_l), True, engine="xla")
+        assert np.array_equal(idx.bwt[: idx.n].numpy(), np.asarray(want))
+    assert scratches[0] is not scratches[1]
+    assert scratches[0].data_ptr() != scratches[1].data_ptr()
+
+
+@pytest.mark.parametrize("radix", [1, 2])
+def test_two_threads_build_like_jax(radix, monkeypatch):
+    """Two builds at once from two host threads on CPU tensors (each its
+    own reads): each BWT equals the JAX package's build of its reads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    monkeypatch.setenv("MSBWT_TPU_RADIX", str(radix))
+    r = np.random.default_rng(31 + radix)
+    sets = [[r.integers(1, 6, r.integers(1, 25)).astype(np.uint8) for _ in range(60)]
+            for _ in range(2)]
+
+    def build(reads_l):
+        idx, _ = bcr.build_msbwt_with_index(*bcr.encode_reads(reads_l), device="cpu")
+        return idx.bwt[: idx.n].numpy()
+
+    with ThreadPoolExecutor(2) as pool:
+        got = list(pool.map(build, sets))
+    for reads_l, g in zip(sets, got):
+        want = jbcr.build_msbwt(*jbcr.encode_reads(reads_l), True, engine="xla")
+        assert np.array_equal(g, np.asarray(want))
+
+
+def test_lf_stage_takes_a_scratch_on_cpu():
+    """On CPU tensors lf_stage runs its twin with or without a scratch,
+    launches nothing and leaves the scratch as it was."""
+    args = lf_stage_args(lf_stage_case("ragged", 41), "cpu")
+    scratch = lf.stage_scratch("cpu")
+    before = _launches()
+    got, want = lf.lf_stage(*args, scratch=scratch), lf.lf_stage_plain(*args)
+    assert _launches() == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not scratch.any()
+
+
 @functools.lru_cache(maxsize=None)
 def _walk_case(kind):
     """``lf_walk_case``'s tuple for the kinds of tests/test_torch_extend.py

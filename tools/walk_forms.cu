@@ -152,7 +152,8 @@ stage_quad_kernel(const int32_t* __restrict__ table, const uint8_t* __restrict__
                   const uint8_t* __restrict__ prev_v, const int32_t* __restrict__ counts,
                   int32_t* __restrict__ q, uint8_t* __restrict__ active,
                   int32_t* __restrict__ P_out, uint8_t* __restrict__ prev_out,
-                  int32_t* __restrict__ counts_out, int64_t N, int j, int nst) {
+                  int32_t* __restrict__ counts_out, int32_t* __restrict__ scratch,
+                  int64_t N, int j, int nst) {
   __shared__ int s_c[kSyms];
   __shared__ int s_bump[kSyms];
   stage_setup(s_c, s_bump, counts, nst);
@@ -182,7 +183,7 @@ stage_quad_kernel(const int32_t* __restrict__ table, const uint8_t* __restrict__
 #pragma unroll
     for (int s = 0; s < kSyms; ++s) acc[s] += __popc(__ballot_sync(kFull, sym == s));
   }
-  add_stage_counts(acc, s_bump, counts, counts_out);
+  add_stage_counts(acc, s_bump, counts, counts_out, scratch);
 }
 
 // Two walkers a quad: walkers 2w and 2w + 1 of quad w, both rows' loads
@@ -321,7 +322,8 @@ stage_multi_kernel(const int32_t* __restrict__ table, const uint8_t* __restrict_
                    const uint8_t* __restrict__ prev_v, const int32_t* __restrict__ counts,
                    int32_t* __restrict__ q, uint8_t* __restrict__ active,
                    int32_t* __restrict__ P_out, uint8_t* __restrict__ prev_out,
-                   int32_t* __restrict__ counts_out, int64_t N, int j, int nst) {
+                   int32_t* __restrict__ counts_out, int32_t* __restrict__ scratch,
+                   int64_t N, int j, int nst) {
   __shared__ int s_c[kSyms];
   __shared__ int s_bump[kSyms];
   stage_setup(s_c, s_bump, counts, nst);
@@ -356,7 +358,7 @@ stage_multi_kernel(const int32_t* __restrict__ table, const uint8_t* __restrict_
       for (int s = 0; s < kSyms; ++s) acc[s] += __popc(__ballot_sync(kFull, sym == s));
     }
   }
-  add_stage_counts(acc, s_bump, counts, counts_out);
+  add_stage_counts(acc, s_bump, counts, counts_out, scratch);
 }
 
 // One thread's LF step off the row pieces of pos, the symbol from the
@@ -532,8 +534,8 @@ int forms_walk_locate(int form, const void* table, const void* starts, const voi
 // other arguments are msbwt_lf_stage's.
 int forms_lf_stage(int form, const void* table, const void* v, const void* lengths,
                    const void* P, const void* prev_v, const void* counts, void* q, void* active,
-                   void* P_out, void* prev_out, void* counts_out, int64_t N, int j, int nst,
-                   void* stream) {
+                   void* P_out, void* prev_out, void* counts_out, void* scratch, int64_t N,
+                   int j, int nst, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (N == 0) {
     cudaMemcpyAsync(counts_out, counts, kSyms * sizeof(int32_t), cudaMemcpyDeviceToDevice, st);
@@ -546,7 +548,7 @@ int forms_lf_stage(int form, const void* table, const void* v, const void* lengt
 #define STAGE_ARGS                                                                         \
   (const int32_t*)table, (const uint8_t*)v, (const int32_t*)lengths, (const int32_t*)P,   \
       (const uint8_t*)prev_v, (const int32_t*)counts, (int32_t*)q, (uint8_t*)active,     \
-      (int32_t*)P_out, (uint8_t*)prev_out, (int32_t*)counts_out, N, j, nst
+      (int32_t*)P_out, (uint8_t*)prev_out, (int32_t*)counts_out, (int32_t*)scratch, N, j, nst
   if (form == 1)
     stage_quad_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(STAGE_ARGS);
   else if (form == 2)

@@ -101,7 +101,7 @@ def build() -> tuple:
                        ("forms_walk_lengths", [i32] + [vp] * 5 + [i64, i64, vp]),
                        ("forms_walk_extract", [i32] + [vp] * 5 + [i64, i32, vp]),
                        ("forms_walk_locate", [i32] + [vp] * 6 + [i64, i64, i32, vp]),
-                       ("forms_lf_stage", [i32] + [vp] * 11 + [i64, i32, i32, vp])):
+                       ("forms_lf_stage", [i32] + [vp] * 12 + [i64, i32, i32, vp])):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = args
     for name, info in sorted(regs.items()):
@@ -129,8 +129,9 @@ def form_call(lib, walk: str, form: int):
             q, P_out = (torch.empty(N, dtype=torch.int32, device=dev) for _ in range(2))
             flags = torch.empty((2, N), dtype=torch.uint8, device=dev)
             counts_out = torch.empty(6, dtype=torch.int32, device=dev)
+            scratch = torch.zeros(8, dtype=torch.int32, device=dev)
             launch("forms_lf_stage", form, tab, cols[j], lengths, P, prev_v, counts, q, flags[0],
-                   P_out, flags[1], counts_out, N, j, nst, dev=dev)
+                   P_out, flags[1], counts_out, scratch, N, j, nst, dev=dev)
             return q, cols[j], flags[0].view(torch.bool), P_out, counts_out, flags[1]
         if walk == "cyclic":
             table, starts, n, cols, lengths, steps, n_steps = args
@@ -256,8 +257,9 @@ def dispatch_parts(torch, args, parent) -> dict:
     c_out = torch.empty(6, dtype=i32, device=dev)
     lib = _kernels.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = lf.stage_scratch(dev)
     ptrs = [t.data_ptr() for t in (tab, cols[j], lengths, P, prev_v, counts, q, flags[0],
-                                   P_out, flags[1], c_out)]
+                                   P_out, flags[1], c_out, scratch)]
 
     def checks():
         lf._device_of(tab)
@@ -272,7 +274,7 @@ def dispatch_parts(torch, args, parent) -> dict:
         words.view(i32).split((N, N, 6))
         return fl[:N].view(torch.bool), fl[N:]
 
-    fns = {"package wrapper": lambda: lf.lf_stage(*args), "checks": checks,
+    fns = {"package wrapper": lambda: lf.lf_stage(*args, scratch=scratch), "checks": checks,
            "carved allocation": carve,
            "two allocations": lambda: (torch.empty(2 * N + 6, dtype=i32, device=dev).split(
                (N, N, 6)), torch.empty((2, N), dtype=u8, device=dev).unbind()),
