@@ -10,7 +10,8 @@ with index and k-mer counting, the streamed build, load-and-extend, read
 recovery, the query side and the merges; then long reads (500k x 1,000 bp)
 at radix 1 and 2 and the query-tier budget at 1.515G symbols. Every path
 runs through the merge-insert kernel and the LF-step kernels (``lf_stage``
-a column, ``lf_walk`` a walk), and every k-mer search through the query
+a column, ``lf_pair`` a radix-2 column pair, ``lf_walk`` a walk), and every
+k-mer search through the query
 kernels (``kmer_ranges_packed``, ``kmer_counts_pair``: one a batch); each
 path resets every kernel's launch count just before it and reads them just
 after. It never falls back to the CPU and catches no
@@ -122,18 +123,24 @@ Phases:
  12. long reads and the query-tier budget: (a) 500,000 x 1,000 bp reads from
      the same genome (500.5M symbols) built with index at radix 1 and at
      radix 2 (``MSBWT_TPU_RADIX``, counts reset before each): equal BWTs
-     and packed tables, 1,001 and 501 merge passes; the entry point timed
-     twice and the device loop three times for each, in turns; then one more
-     device loop at each radix keeping column 1,000's ``lf_stage`` inputs
-     (at radix 2 also the last pass's), and on those card tensors
-     ``lf_stage`` == its twin (timed; at radix 1 its event time split from
-     its kernel's device duration by the profiler) and the merge kernel ==
-     the plain pass; (b) 20,000 of them at radix 2 through the plain pass
-     and LF step on the card == the kernels; (c) the BWT of the first
-     400,000 loaded from RLE bytes and extended by the last 100,000 at the
-     automatic radix (counts reset just before) == (a)'s BWT, and its
-     terminator and read-length walks' inputs through ``lf_walk`` == the
-     twins, timed; (d) phase 6 checks its 101 passes (radix 1 at 100 bp);
+     and packed tables, 1,001 and 501 merge passes, 1,000 ``lf_stage``
+     launches and 500 ``lf_pair`` calls; the entry point timed twice and
+     the device loop three times for each, in turns; one loop at each radix
+     under the profiler (device events a column); then one more device loop
+     at each radix keeping column 1,000's ``lf_stage`` inputs at radix 1
+     and the last pair's ``lf_pair`` inputs (columns 1,000 and 1,001) and
+     last pass's at radix 2, and on those card tensors ``lf_stage`` == its
+     twin (timed; its event time split from its kernel's device duration by
+     the profiler), ``lf_pair`` == ``lf_pair_plain`` (timed against the
+     bytes the pair must move, its device time by kernel from the profiler)
+     and the merge kernel == the plain pass; (b) 20,000 of them at radix 2
+     through the plain pass and LF steps on the card == the kernels (500
+     ``lf_pair`` calls); (c) the BWT of the first 400,000 loaded from RLE
+     bytes and extended by the last 100,000 at the automatic radix (2, by
+     the JAX package's rule; counts reset just before: 500 ``lf_pair``
+     calls) == (a)'s BWT, and its terminator and read-length walks' inputs
+     through ``lf_walk`` == the twins, timed; (d) phase 6 checks its 101
+     passes (radix 1 at 100 bp);
      (e) 15M x 100 bp (1.515G symbols) built (counts reset just before;
      column 90's ``lf_stage`` inputs, slots past 2^30, kept and held
      against the twin) and encoded to RLE bytes in memory: ``RleBWT`` with
@@ -143,7 +150,8 @@ Phases:
      ``kmer_counts_pair`` held against its twin on the card-budget engine's
      pair table, 6^9 cache and 1M k-mers (positions past 2^30), exact, timed
  13. one JSON line of kernel results (``merge_insert``, ``lf_stage``,
-     ``lf_walk``, ``kmer_ranges_packed``, ``kmer_counts_pair``), then
+     ``lf_pair``, ``lf_walk``, ``kmer_ranges_packed``, ``kmer_counts_pair``),
+     then
      ``{"ok": true, "device": ...}``
 
 With ``--parent DIR``, every query hold (phases 3b, 9, 10 and 12e, and the
@@ -151,8 +159,10 @@ correction's batches) also runs the parent's query kernel, through the same
 C entry point of the parent's library, and every LF hold (phases 3b, 6b, 8,
 9, 12a, 12c and 12e) the parent's ``lf_stage`` or ``lf_walk`` through the
 parent's own ``ops/lf.py`` wrapper bound to its library (its C contract:
-the walks take ``bwt``), on the same card tensors: its output must equal
-this commit's kernel's, exactly; the timed holds time both in turns
+the walks take ``bwt``), and phase 12a's ``lf_pair`` the parent's radix-2
+step (its ``lf_pair``, or before it its torch ``_stage_step2`` around
+its ``lf_stage``), on the same card tensors: its output must equal this
+commit's kernel's, exactly; the timed holds time both in turns
 (parent, new, new, parent) and log the ratio. The merge pass of phase 3 is
 timed the same way (its source is unchanged since the parent, so its ratio
 reads the noise of the turns). The ratios are logged and not checked, so
@@ -188,6 +198,7 @@ HOST_ROUNDS, HOST_CALLS = 8, 1000  # stage_split: the host's time a call of lf_s
 PARENT = None  # --parent: the parent commit's loaded kernel library
 PARENT_LF = None  # --parent: the parent commit's ops/lf.py on that library
 PARENT_RACE_LF = None  # --parent: the same on a private copy of the library (phase 6c)
+PARENT_STEP2 = None  # --parent: the parent commit's radix-2 step (its ops/bcr.py)
 
 
 def log(msg: str) -> None:
@@ -260,12 +271,12 @@ def cuda_ms(fn, reps):
 
 
 def wrappers() -> tuple:
-    """Every kernel wrapper: the merge kernel, ``lf_stage``, the four
-    ``lf_walk`` walks and the two query kernels."""
+    """Every kernel wrapper: the merge kernel, ``lf_stage``, ``lf_pair``,
+    the four ``lf_walk`` walks and the two query kernels."""
     from rust_msbwt_tpu_torch.ops import lf, query
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
 
-    return (merge_insert, lf.lf_stage, *lf.LF_WALKS, *query.QUERY_KERNELS)
+    return (merge_insert, lf.lf_stage, lf.lf_pair, *lf.LF_WALKS, *query.QUERY_KERNELS)
 
 
 def reset_counts() -> None:
@@ -283,7 +294,8 @@ def path_counts() -> dict:
 
 
 def lf_line(c: dict) -> str:
-    return (f"lf_stage launches {c['lf_stage']}, lf_walk launches {c['lf_walk']} "
+    return (f"lf_stage launches {c['lf_stage']}, lf_pair launches {c['lf_pair']}, "
+            f"lf_walk launches {c['lf_walk']} "
             f"(cyclic {c['lf_walk_cyclic']}, lengths {c['lf_walk_lengths']}, "
             f"extract {c['lf_walk_extract']}, locate {c['lf_walk_locate']}), "
             f"kmer_ranges_packed launches {c['kmer_ranges_packed']}, kmer_counts_pair "
@@ -330,15 +342,19 @@ def capture(module, name, keep=lambda *a: True, clone=True):
 @contextlib.contextmanager
 def plain_lf():
     """The build's LF step through the plain twins inside the block:
-    ``ops.bcr``'s ``lf_stage`` (its kernel's scratch dropped),
-    ``lf_walk_cyclic`` and ``lf_walk_lengths``."""
+    ``ops.bcr``'s ``lf_stage`` and ``lf_pair`` (their kernels' scratch
+    dropped), ``lf_walk_cyclic`` and ``lf_walk_lengths``."""
     from rust_msbwt_tpu_torch.ops import bcr, lf
 
     def stage_plain(*args, scratch=None):
         return lf.lf_stage_plain(*args)
 
+    def pair_plain(*args, scratch=None):
+        return lf.lf_pair_plain(*args)
+
     with contextlib.ExitStack() as stack:
         stack.enter_context(swapped(bcr, "lf_stage", stage_plain))
+        stack.enter_context(swapped(bcr, "lf_pair", pair_plain))
         for name in ("lf_walk_cyclic", "lf_walk_lengths"):
             stack.enter_context(swapped(bcr, name, getattr(lf, f"{name}_plain")))
         yield
@@ -421,6 +437,104 @@ def loop_stage(dev):
     from rust_msbwt_tpu_torch.ops import lf
 
     return functools.partial(lf.lf_stage, scratch=lf.stage_scratch(dev))
+
+
+def loop_pair(dev):
+    """``lf_pair`` as the stage loop calls it: with one scratch of its own
+    for every call (each call leaves it zeroed)."""
+    import functools
+
+    from rust_msbwt_tpu_torch.ops import lf
+
+    return functools.partial(lf.lf_pair, scratch=lf.stage_scratch(dev))
+
+
+def pair_bytes(torch, args) -> tuple:
+    """The bytes ``lf_pair``'s function must move for one pair's data, and
+    the table rows they hold: 96 B of each distinct table row its two ranks
+    read (column j's at the ``P`` of the reads active in column j, column
+    j + 1's at the old positions of the reads active in both columns;
+    counted here through the plain twin's own steps), 26 B a read (lengths,
+    P, the two columns' symbols and prev_v in; the 2N slots and flags, P
+    and prev_v out), and the counts in and out. The kernel's own
+    intermediates (its slot tiles' counts and starts) are not the
+    function's and are not counted."""
+    from rust_msbwt_tpu_torch.ops import lf
+
+    j, tab, cap, nst, cols, lengths, P, counts, prev_v = args
+    q1, _, act1, *_ = lf.lf_stage_plain(j, tab, nst, cols, lengths, P, counts, prev_v)
+    act2 = act1 & (j + 1 <= lengths + 1)
+    old_pos = lf.pair_order(q1, act1, cap)[2]
+    rows = int(torch.unique(torch.cat([P[act1].long() >> 7,
+                                       old_pos[act2].long() >> 7])).numel())
+    return 96 * rows + 26 * P.numel() + 48, rows
+
+
+def pair_split(torch, label, fn, args, reps=20) -> dict:
+    """``fn`` (``lf_pair``) over ``reps`` calls under ``torch.profiler``:
+    its device milliseconds and device events a call, by kernel (launches
+    uncounted)."""
+    import re
+
+    from rust_msbwt_tpu_torch.utils.profiling import device_us, trace
+
+    with uncounted(), tempfile.TemporaryDirectory() as d, trace(d) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and device_us(e) > 0:
+            m = re.search(r"pair_\w+?_kernel|[Mm]emset", e.key)
+            key = m.group(0) if m else e.key[:40]
+            by[key] = by.get(key, 0.0) + device_us(e) * 1e-3 / reps
+            by[key + " events"] = by.get(key + " events", 0) + e.count / reps
+    res = {"device_ms": sum(v for k, v in by.items() if not k.endswith(" events")),
+           "events": sum(v for k, v in by.items() if k.endswith(" events")), "kernels": by}
+    log(f"[lf] lf_pair split, {label}: device {res['device_ms']:.4f} ms in "
+        f"{res['events']:.1f} events a call ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in by.items() if not k.endswith(" events")) + ")")
+    return res
+
+
+def hold_pair(torch, name, args, reps=20, plain_reps=3):
+    """``hold`` for one kept ``lf_pair`` column pair, called as the stage
+    loop calls it (``loop_pair``), against ``lf_pair_plain``; its bound is
+    ``pair_bytes``; then its device time by kernel (``pair_split``) and,
+    with ``--parent``, the parent's radix-2 step (``load_parent_step2``)
+    == this commit's on the same card tensors, timed in turns."""
+    from rust_msbwt_tpu_torch.ops import lf
+
+    j, tab, cap, P = args[0], args[1], args[2], args[6]
+    bound_bytes, rows = pair_bytes(torch, args)
+    label = (f"lf_pair, columns {j} and {j + 1} of {name} ({P.numel()} reads, capacity "
+             f"{cap}, {rows} distinct rows of the {tab.shape[0]}-row table)")
+    pair = loop_pair(tab.device)
+    res = hold(torch, label, pair, lf.lf_pair_plain, args, bound_bytes, reps=reps,
+               plain_reps=plain_reps)
+    res["rows"] = rows
+    res["split"] = pair_split(torch, label, pair, args)
+    if PARENT_STEP2 is not None:
+        import functools
+
+        parent = functools.partial(PARENT_STEP2, scratch=lf.stage_scratch(tab.device))
+        res.update(parent_turns(torch, label, pair, parent, [args], reps, "lf"))
+    return res
+
+
+def loop_events(torch, fn, columns: int) -> dict:
+    """One ``fn()`` (a device stage loop) under ``torch.profiler``: its
+    device seconds and device events, and the events a column."""
+    from rust_msbwt_tpu_torch.utils.profiling import device_us, trace
+
+    with uncounted(), tempfile.TemporaryDirectory() as d, trace(d) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+    n_events = sum(e.count for e in evts)
+    return {"device_s": sum(device_us(e) for e in evts) * 1e-6, "events": n_events,
+            "events_a_column": n_events / columns}
 
 
 def walk_bytes(torch, walk, args) -> dict:
@@ -640,6 +754,26 @@ def load_parent_lf(parent, lib):
 
     mod._launch = launch
     return mod
+
+
+def load_parent_step2(parent, parent_lf):
+    """The parent commit's radix-2 step: its ``lf_pair`` on its own library
+    where its ``ops/lf.py`` has one (``parent_lf``), else its
+    ``ops/bcr.py``'s ``_stage_step2`` (torch corrections around its
+    ``lf_stage``), with its ``lf_stage`` the parent's own. None when no
+    parent checkout is given."""
+    import importlib.util
+
+    if not parent:
+        return None
+    if hasattr(parent_lf, "lf_pair"):
+        return parent_lf.lf_pair
+    path = os.path.join(parent, "rust_msbwt_tpu_torch", "ops", "bcr.py")
+    spec = importlib.util.spec_from_file_location("parent_bcr", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.lf_stage = parent_lf.lf_stage
+    return mod._stage_step2
 
 
 def private_copy(lib):
@@ -1830,12 +1964,14 @@ def radix_env(radix):
 def phase_long(torch, np, dev):
     """Phase 12a-c: 500k x 1,000 bp reads (500.5M symbols) built at radix 1
     and at radix 2 (counts reset before each): equal BWTs and tables, 1,001
-    and 501 passes; entry points and device loops timed in turns; column
-    1,000's ``lf_stage`` at each radix and the last full-size radix-2 pass
-    through the kernels == the plain twins; a 20k-read radix-2 build through
-    the plain pass and LF step == the kernels'; a 400k + 100k load-and-extend
-    at the automatic radix == the one-shot BWT, its two walks through
-    ``lf_walk`` == the twins."""
+    and 501 passes, 1,000 ``lf_stage`` launches and 500 ``lf_pair`` calls;
+    entry points and device loops timed in turns, one loop at each radix
+    profiled for its device events a column; column 1,000's ``lf_stage`` at
+    radix 1, the last pair's ``lf_pair`` (columns 1,000 and 1,001) at radix
+    2 and the last full-size radix-2 pass through the kernels == the plain
+    twins; a 20k-read radix-2 build through the plain pass and LF steps ==
+    the kernels'; a 400k + 100k load-and-extend at the automatic radix (2)
+    == the one-shot BWT, its two walks through ``lf_walk`` == the twins."""
     from statistics import median
 
     from rust_msbwt_tpu_torch.models.dynamic import DynamicBWT
@@ -1865,8 +2001,10 @@ def phase_long(torch, np, dev):
     check((l1["merge_insert"], l2["merge_insert"]) == (LONG_LEN + 1, LONG_LEN // 2 + 1),
           f"long-read passes {l1['merge_insert']} / {l2['merge_insert']}, not "
           f"{LONG_LEN + 1} / {LONG_LEN // 2 + 1}")
-    check((l1["lf_stage"], l2["lf_stage"]) == (LONG_LEN, LONG_LEN // 2),
-          f"long-read lf_stage launches {l1['lf_stage']} / {l2['lf_stage']}")
+    check((l1["lf_stage"], l2["lf_stage"], l1["lf_pair"], l2["lf_pair"])
+          == (LONG_LEN, 0, 0, LONG_LEN // 2),
+          f"long-read lf_stage launches {l1['lf_stage']} / {l2['lf_stage']}, lf_pair "
+          f"{l1['lf_pair']} / {l2['lf_pair']}")
     del i2, p2, out
     for radix in (2, 1):  # one more entry-point build each, the other order
         with radix_env(radix):
@@ -1878,8 +2016,17 @@ def phase_long(torch, np, dev):
         for radix in ((1, 2) if rnd % 2 == 0 else (2, 1)):
             with radix_env(radix):
                 loops[radix].append(timed(lambda: bcr._build_device(p, dev, merge_insert))[0])
-    # column LONG_LEN's lf_stage inputs at radix 1 (a column) and radix 2
-    # (the last pair's first column): the kernel == the plain twin on them
+    events = {}
+    for radix in (1, 2):  # one profiled loop each: device events a column
+        with radix_env(radix):
+            events[radix] = loop_events(torch, lambda: bcr._build_device(p, dev, merge_insert),
+                                        LONG_LEN)
+        log(f"[long] radix {radix}: one profiled device loop, "
+            f"{events[radix]['device_s']:.4f} s of device time in {events[radix]['events']} "
+            f"device events, {events[radix]['events_a_column']:.2f} a column")
+    # column LONG_LEN's lf_stage inputs at radix 1 (a column) and the
+    # lf_pair inputs of the pair that starts there at radix 2 (the last
+    # pair): the kernel == the plain twin on them
     def last_col(j, *args):
         return j == LONG_LEN
 
@@ -1901,12 +2048,13 @@ def phase_long(torch, np, dev):
         calls[0] += 1
         return merge_insert(old, q, v, active, **kw)
 
-    with radix_env(2), capture(bcr, "lf_stage", keep=last_col) as stage2:
+    with radix_env(2), capture(bcr, "lf_pair", keep=last_col) as pair2:
         bcr._build_device(p, dev, keep_last)
     del p
     check(calls[0] == LONG_LEN // 2 + 1 and len(seen) == 1, f"radix-2 run of {calls[0]} passes")
-    check(len(stage2) == 1, f"radix-2 loop kept {len(stage2)} columns")
-    stages[2] = hold_stage(torch, "the 500.5M loop at radix 2 (its last pair)", stage2.pop())
+    check(len(pair2) == 1, f"radix-2 loop kept {len(pair2)} column pairs")
+    pair = hold_pair(torch, "the 500.5M loop at radix 2 (its last pair)", pair2.pop())
+    pair["events"] = events
     (old, q, v, act), = seen
     got, want = merge_insert(old, q, v, act), merge_insert_slots(old, q, v, act)
     check(q.numel() == 2 * LONG_READS and int(want[2]) == 2 * LONG_READS,
@@ -1929,16 +2077,19 @@ def phase_long(torch, np, dev):
             + f" s (median {loop:.3f}; full-buffer pass bound {bound.seconds_at_light:.3f} s "
             f"for {bound.bytes_touched} B); peak device memory {peak / 2**30:.2f} GiB; "
             f"merge kernel launches {(l1, l2)[radix - 1]['merge_insert']}, "
-            f"lf_stage launches {(l1, l2)[radix - 1]['lf_stage']}")
+            f"lf_stage launches {(l1, l2)[radix - 1]['lf_stage']}, lf_pair calls "
+            f"{(l1, l2)[radix - 1]['lf_pair']}")
     log(f"[long] {LONG_READS} x {LONG_LEN} bp ({n} symbols): BWT and table equal at radix "
         f"1 and 2; device loop radix 1 / radix 2 = "
         f"{res[1]['loop_s'] / res[2]['loop_s']:.3f}, per-round ratios "
         + " / ".join(f"{a / b:.3f}" for a, b in zip(loops[1], loops[2])))
 
-    # (b) a small radix-2 build through the plain pass and LF step on the card
+    # (b) a small radix-2 build through the plain pass and LF steps on the card
     small = slice(0, LONG_SMALL)
     with radix_env(2):
+        reset_counts()
         got = {"kernel": bcr.build_msbwt_with_index(reads[small], lengths[small], device=dev)}
+        small_launches = path_counts()
         reset_counts()
         with plain_lf():
             got["plain"] = bcr.build_msbwt_with_index(reads[small], lengths[small], device=dev,
@@ -1948,8 +2099,10 @@ def phase_long(torch, np, dev):
           and torch.equal(got["kernel"][1].table, got["plain"][1].table),
           "20k long reads at radix 2: kernels != plain pass and LF step")
     check(max(plain_launches.values()) == 0, f"20k plain build launched {plain_launches}")
-    log(f"[long] {LONG_SMALL} x {LONG_LEN} bp at radix 2: the plain pass and LF step on the "
-        "card (no kernel launched) == the kernels (BWT and table)")
+    check(small_launches["lf_pair"] == LONG_LEN // 2 and small_launches["lf_stage"] == 0,
+          f"20k radix-2 build: {lf_line(small_launches)}")
+    log(f"[long] {LONG_SMALL} x {LONG_LEN} bp at radix 2: the plain pass and LF steps on the "
+        f"card (no kernel launched) == the kernels ({lf_line(small_launches)}; BWT and table)")
     del got
 
     # (c) load-and-extend at the automatic radix
@@ -1971,15 +2124,17 @@ def phase_long(torch, np, dev):
         ext_s = time.perf_counter() - t0
         launches_ext = path_counts()
         # --- end of the long-read extend ---
-    radix = bcr.build_radix()
+    radix = bcr.build_radix(n, LONG_READS - LONG_BASE, LONG_BASE * (LONG_LEN + 1))
     check(ext.n == n and torch.equal(ext.bwt[: ext.n], i1.bwt[: i1.n]),
           "long-read load + extend != the one-shot BWT")
     log(f"[long] load {LONG_BASE} reads' BWT from RLE bytes + extend by "
         f"{LONG_READS - LONG_BASE} reads (auto radix {radix}): {ext_s:.3f} s, merge kernel "
         f"launches {launches_ext['merge_insert']}, {lf_line(launches_ext)}; equal to the "
         "one-shot BWT")
-    check(launches_ext["lf_stage"] > 0 and launches_ext["lf_walk_cyclic"] == 1
-          and launches_ext["lf_walk_lengths"] == 1, f"long-read extend: {lf_line(launches_ext)}")
+    check(radix == 2 and launches_ext["lf_pair"] == LONG_LEN // 2
+          and launches_ext["lf_stage"] == 0 and launches_ext["lf_walk_cyclic"] == 1
+          and launches_ext["lf_walk_lengths"] == 1,
+          f"long-read extend at radix {radix}: {lf_line(launches_ext)}")
     del dyn, ext
     (cargs,), (largs,) = cyc, lens
     errs, walks = [], {}
@@ -1995,7 +2150,7 @@ def phase_long(torch, np, dev):
             walks[key] = {"ms": cuda_ms(lambda: kernel(*args), 5)}
         log(f"[lf] {label}: kernel {walks[key]['ms']:.4f} ms")
         walks[key].update(parent_lf(torch, label, kernel.__name__, args, reps=5))
-    return l1, l2, launches_ext, res, stages, max(errs), walks
+    return l1, l2, launches_ext, res, stages, pair, max(errs), walks
 
 
 def phase_budget(torch, np, dev):
@@ -2133,9 +2288,10 @@ def main(argv=None) -> int:
     log(ptxas.strip() or "(library up to date: not rebuilt)")
     log(f"[health] {json.dumps(session_health())}")
 
-    global PARENT, PARENT_LF, PARENT_RACE_LF
+    global PARENT, PARENT_LF, PARENT_RACE_LF, PARENT_STEP2
     PARENT = load_parent_kernels(args.parent)
     PARENT_LF = load_parent_lf(args.parent, PARENT)
+    PARENT_STEP2 = load_parent_step2(args.parent, PARENT_LF)
     if PARENT is not None:
         PARENT_RACE_LF = load_parent_lf(args.parent, private_copy(PARENT))
     max_err, times = phase_kernel(torch, dev)
@@ -2170,8 +2326,8 @@ def main(argv=None) -> int:
         phase_gloo_ranks(torch, np, dev, reads, lengths, d)
     del reads, lengths, kmers, counts, idx
     torch.cuda.empty_cache()
-    long_r1, long_r2, long_ext, _, long_stages, long_walk_err, long_walks = phase_long(
-        torch, np, dev)
+    long_r1, long_r2, long_ext, _, long_stages, long_pair, long_walk_err, long_walks = \
+        phase_long(torch, np, dev)
     torch.cuda.empty_cache()
     budget, _, big_stage, big_pair = phase_budget(torch, np, dev)
     query_holds.update({"1515m_pair_6^9": big_pair, "recovery_locate": locate_ranges})
@@ -2199,7 +2355,7 @@ def main(argv=None) -> int:
                 "holds": {k: query_holds[k] for k in hold_keys[1:]}}
 
     columns = {"505m_col90": stage, "long_radix1_col1000": long_stages[1],
-               "long_radix2_col1000": long_stages[2], "1515m_col90": big_stage}
+               "1515m_col90": big_stage}
     walk_err = max([walk["max_abs_err"], long_walk_err]
                    + [w["max_abs_err"] for w in walks.values()])
     print(json.dumps({"kernels": [{
@@ -2232,6 +2388,27 @@ def main(argv=None) -> int:
         "columns": {name: {k: c.get(k) for k in ("ms", "plain_ms", "bound_ms", "rows",
                                                   "parent_ms", "turn_ms", "split")}
                     for name, c in columns.items()},
+    }, {
+        "name": "lf_pair",
+        "route": "cuda",
+        "source": "rust_msbwt_tpu_torch/csrc/lf.cu",
+        "replaces": "rust_msbwt_tpu/ops/bcr.py:483",
+        # its main path is the long-read build at radix 2 (the rule's pick)
+        "launches": long_r2["lf_pair"],
+        **launches_of("lf_pair", skip=("", "_recovery", "_correct", "_distributed")),
+        "max_abs_err": long_pair["max_abs_err"],
+        "ms": long_pair["ms"],
+        "plain_ms": long_pair["plain_ms"],
+        "bound_ms": long_pair["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "parent_ms": long_pair.get("parent_ms"),
+        "turn_ms": long_pair.get("turn_ms"),
+        "rows": long_pair["rows"],
+        "device_ms": long_pair["split"]["device_ms"],
+        "device_events": long_pair["split"]["events"],
+        "events_a_column": {f"radix{r}": e["events_a_column"]
+                            for r, e in long_pair["events"].items()},
     }, {
         "name": "lf_walk",
         "route": "cuda",

@@ -54,10 +54,10 @@ timed. Then:
    (500k) from the same genome; on each, the device stage loop at radix 1
    and radix 2 (``MSBWT_TPU_RADIX``) in turns for three rounds, the order
    flipped each round, and the median of the per-round ratios; then one
-   profiled loop per radix (device time, idle share), with radix 2's
-   corrections (argsort + sort, searchsorted) timed apart in the loop, and
-   the argsort, the sort and the searchsorted apart in their functions
-   alone at the same N.
+   profiled loop per radix (device time, idle share, device events a
+   column), with radix 2's ``lf_pair`` kernels timed apart in the loop, and
+   ``lf_pair`` alone on the last column pair's inputs (device ms and device
+   events a call, by kernel).
 
 ``--queries`` runs one build and step 2's two query batches only (with
 ``--reps 1``, about a minute): the run PERF.md's query numbers come from,
@@ -309,46 +309,23 @@ def profile_merge_round(torch, np, dev, reads, lengths, top: int) -> dict:
 
 SWEEP = ((250, 2_000_000), (500, 1_000_000), (1_000, 500_000))  # ~500M symbols each
 SWEEP_ROUNDS = 3
-# radix 2's corrections among the device kernels: the argsort of the column
-# slots and the sort of the next column's (torch.sort), and the searchsorted
-CORRECTIONS = {"argsort + sort": lambda k: "sort" in k and "searchsorted" not in k,
-               "searchsorted": lambda k: "searchsorted" in k}
+# radix 2's column pairs among the device kernels: lf_pair's eight kernels
+# (csrc/lf.cu pair_*_kernel) and its memset
+PAIR_KERNELS = {"lf_pair": lambda k: "pair_" in k}
 
 
-def correction_split(torch, dev, N: int, n: int, reps: int = 20) -> dict:
-    """Device ms a pair of radix 2's corrections apart, at N reads over n
-    symbols: ``pair_order`` (the argsort of the column's slots and its
-    inverse) and ``pair_slots`` (the one-hot scan, the sort of the next
-    column's slots, the searchsorted), each profiled alone over ``reps``
-    calls on distinct random slots; sort kernels in the first are the
-    argsort's, in the second the sort's."""
-    from torch.profiler import ProfilerActivity, profile
+def last_pair(torch, dev, p, L: int):
+    """One device stage loop at radix 2 on ``p``, keeping the last column
+    pair's ``lf_pair`` inputs (columns L and L + 1, or L - 1 and L for odd
+    L); ``chip_smoke.pair_split`` then profiles ``lf_pair`` on them."""
+    from chip_smoke import capture, radix_env
+    from rust_msbwt_tpu_torch.ops import bcr
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
 
-    from rust_msbwt_tpu_torch.ops.bcr import pair_order, pair_slots
-    from rust_msbwt_tpu_torch.utils.profiling import device_us
-
-    ar = torch.arange(N, dtype=torch.int32, device=dev)
-    q1 = (torch.sort(torch.randint(0, n - N, (N,), device=dev)).values.to(torch.int32)
-          + ar)[torch.randperm(N, device=dev)]
-    v1 = torch.randint(0, 6, (N,), dtype=torch.uint8, device=dev)
-    act = torch.ones(N, dtype=torch.bool, device=dev)
-    order1, inv1, old_pos = pair_order(q1, act, n)
-    calls = {"pair_order": lambda: pair_order(q1, act, n),
-             "pair_slots": lambda: pair_slots(q1, v1, act, act, order1, inv1, old_pos)}
-    out = {}
-    for name, fn in calls.items():
-        fn()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
-            k = e.key.lower()
-            part = ("argsort" if name == "pair_order" and "sort" in k else
-                    "searchsorted" if "searchsorted" in k else
-                    "sort" if "sort" in k else name + " other")
-            out[part] = out.get(part, 0.0) + device_us(e) * 1e-3 / reps
-    return out
+    last = L - (L % 2)
+    with radix_env(2), capture(bcr, "lf_pair", keep=lambda j, *a: j == last) as kept:
+        bcr._build_device(p, dev, merge_insert)
+    return kept.pop()
 
 
 def radix_sweep(torch, np, dev, top: int) -> list:
@@ -356,11 +333,12 @@ def radix_sweep(torch, np, dev, top: int) -> list:
     ~500M symbols at L = 250, 500 and 1,000 from the flagship genome, one
     host prep each. ``SWEEP_ROUNDS`` rounds in turns, the order flipped each
     round; the median of the per-round ratios (radix 1 / radix 2), then one
-    profiled loop per radix (device time, idle share, the corrections'
-    kernels timed apart) and ``correction_split``."""
+    profiled loop per radix (device time, idle share, events a column, at
+    radix 2 ``lf_pair``'s kernels timed apart) and ``lf_pair`` alone on the
+    last pair's inputs (device ms and events a call, by kernel)."""
     from statistics import median
 
-    from chip_smoke import genome_reads, radix_env
+    from chip_smoke import genome_reads, loop_pair, pair_split, radix_env
     from rust_msbwt_tpu_torch.ops.bcr import _build_device, _prepare_build
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
 
@@ -381,12 +359,13 @@ def radix_sweep(torch, np, dev, top: int) -> list:
             with radix_env(radix):
                 row[f"profile_radix{radix}"] = profiled(
                     torch, lambda: _build_device(p, dev, merge_insert),
-                    f"L={L} radix {radix}", top, CORRECTIONS if radix == 2 else None,
+                    f"L={L} radix {radix}", top, PAIR_KERNELS if radix == 2 else None,
                     columns=L)
-        row["correction_ms_a_pair"] = correction_split(torch, dev, n_reads, p["n_cap"])
+        args = last_pair(torch, dev, p, L)
         del p
-        log(f"[sweep] L={L} corrections alone, device ms a pair: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in row["correction_ms_a_pair"].items()))
+        row["pair_a_call"] = pair_split(torch, f"L={L}, columns {args[0]} and {args[0] + 1}",
+                                        loop_pair(dev), args)
+        del args
         log(f"[sweep] L={L} ({n_reads} reads, {row['symbols']} symbols): device loop radix 1 "
             + " / ".join(f"{t:.4f}" for t in loops[1]) + " s, radix 2 "
             + " / ".join(f"{t:.4f}" for t in loops[2]) + " s; per-round ratios "

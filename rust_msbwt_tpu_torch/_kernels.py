@@ -102,15 +102,19 @@ def load():
             build()
             lib = ctypes.CDLL(LIB_PATH)
             vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.msbwt_merge_tile.restype = ctypes.c_int
-            lib.msbwt_merge_tile.argtypes = []
+            for name in ("msbwt_merge_tile", "msbwt_lf_pair_tile"):
+                getattr(lib, name).restype = ctypes.c_int
+                getattr(lib, name).argtypes = []
             lib.msbwt_merge_insert_scratch_len.restype = i64
             lib.msbwt_merge_insert_scratch_len.argtypes = [i64, i64]
             lib.msbwt_merge_insert.restype = ctypes.c_int
             lib.msbwt_merge_insert.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i64, vp]
+            lib.msbwt_lf_pair_work_len.restype = i64
+            lib.msbwt_lf_pair_work_len.argtypes = [i64, i64]
             i32 = ctypes.c_int
             for name, args in (
                 ("msbwt_lf_stage", [vp] * 12 + [i64, i32, i32, vp]),
+                ("msbwt_lf_pair", [vp] * 14 + [i64, i64, i32, i32, vp]),
                 ("msbwt_lf_walk_cyclic", [vp] * 6 + [i64, i64, i32, vp]),
                 ("msbwt_lf_walk_lengths", [vp] * 5 + [i64, i64, vp]),
                 ("msbwt_lf_walk_extract", [vp] * 5 + [i64, i32, vp]),

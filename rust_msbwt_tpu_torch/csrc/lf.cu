@@ -1,5 +1,6 @@
 // LF steps over the packed rank table, for Hopper (sm_90a): the BCR stage
-// step (lf_stage) and the batched LF walks (lf_walk).
+// step (lf_stage), its radix-2 column pair (lf_pair) and the batched LF
+// walks (lf_walk).
 //
 // The JAX package has no Pallas kernel for these: it runs them as XLA
 // fusions inside one compiled program. What they replace there:
@@ -7,6 +8,10 @@
 //             rank _pallas_rank_table (:396), the C array _cvec (:471),
 //             the slot, the carry updates and _bump_counts (:434) of one
 //             BCR column;
+//   lf_pair   bcr.py::_pallas_stage_step2 (:483): two columns for one merge
+//             pass, column j + 1's slots from the table before column j's
+//             inserts (its argsort, one-hot scan, second rank, sort and
+//             searchsorted; the design is at pair_first_kernel below);
 //   lf_walk   bcr.py::_terminator_positions_impl (:1048, the cyclic
 //             backward search of an extend), read_lengths_from_bwt (:1090),
 //             ops/extract.py::_extract_impl (:24) and _locate_walk_impl
@@ -58,12 +63,17 @@
 //   counts_out or of the scratch, and no block reads counts that another is
 //   adding into. Launches that share a scratch must run one at a time (the
 //   stage loop's, on its stream); concurrent callers each pass their own,
-//   and the file keeps no state of its own across launches.
+//   and the file keeps no state of its own across launches. lf_pair sums
+//   each of its two columns' counts the same way, in the same scratch.
+// * lf_pair: bounded like lf_stage by its two ranks' random row reads (the
+//   distinct rows of both, 96 B each) beside ~40 B of per-read arrays; its
+//   slot ranks use no sort and no pass over the buffer (below).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "rank.cuh"
+#include "scan.cuh"
 
 namespace {
 
@@ -78,10 +88,9 @@ static_assert(kSyms + 1 <= kStageScratch, "lf_stage's scratch holds the counts a
 enum WalkMode { kCyclic, kExtract };
 constexpr int kChase = 2;              // read-length walk: walkers a thread
 
-// The column's C array into s_c (C[0] = 0, C[f >= 1] = nst +
-// counts[1..f-1]) and s_bump zeroed. Every thread of the block calls it.
-__device__ __forceinline__ void stage_setup(int* s_c, int* s_bump,
-                                            const int32_t* __restrict__ counts, int nst) {
+// The C array of counts into s_c (C[0] = 0, C[f >= 1] = nst +
+// counts[1..f-1]), by threads 0..5; no barrier.
+__device__ __forceinline__ void load_c(int* s_c, const int32_t* __restrict__ counts, int nst) {
   if (threadIdx.x < kSyms) {
     int c = 0;
     if (threadIdx.x > 0) {
@@ -89,8 +98,15 @@ __device__ __forceinline__ void stage_setup(int* s_c, int* s_bump,
       for (int s = 1; s < (int)threadIdx.x; ++s) c += counts[s];
     }
     s_c[threadIdx.x] = c;
-    s_bump[threadIdx.x] = 0;
   }
+}
+
+// The column's C array into s_c and s_bump zeroed. Every thread of the
+// block calls it.
+__device__ __forceinline__ void stage_setup(int* s_c, int* s_bump,
+                                            const int32_t* __restrict__ counts, int nst) {
+  load_c(s_c, counts, nst);
+  if (threadIdx.x < kSyms) s_bump[threadIdx.x] = 0;
   __syncthreads();
 }
 
@@ -162,6 +178,423 @@ lf_stage_kernel(const int32_t* __restrict__ table, const uint8_t* __restrict__ v
   }
   add_stage_counts(acc, s_bump, counts, counts_out, scratch);
 }
+
+// ---------------------------------------------------------------------------
+// lf_pair: two BCR columns j, j + 1 through one merge pass (radix 2)
+// ---------------------------------------------------------------------------
+//
+// Column j's slots q1 are lf_stage's. Column j + 1's slots over the buffer
+// after column j's inserts come from the table before them (the JAX step's
+// identity): q2 = C1[v1] + rank(v1, old_pos) + inb, where C1 is the C
+// array after column j, inv1 the number of active q1 below read i's,
+// old_pos = clamp(q1 - inv1, 0, cap) and inb the number of those with read
+// i's symbol v1. Then column j's slots move past column j + 1's: f1 = q1 +
+// #{k < m2: bk[k] <= q1}, bk[inv2] = q2 - inv2 over the m2 active q2, inv2
+// the number of active q2 below read i's.
+//
+// inv1, inb and inv2 are one primitive: the rank of a distinct slot below
+// 2^31 among a set of distinct slots, by symbol. It takes no sort and no
+// pass over an n-sized array: the slots are bucketed by 16K-position tile
+// (a count a tile and symbol, one atomic a read, whose old value is the
+// read's place in its bucket), the counts scanned once, each read placed,
+// and each tile ranks its own slots: a warp a tile of at most 128 slots
+// (the usual one: 16 a tile at 500k reads over 500M), every slot against
+// every other, or a block a larger tile, with a bitmap of the tile a
+// symbol in shared memory, word prefixes and popcounts. The work is
+// O(N + cap / 16K).
+//
+// Launches, all on the caller's stream (9 device events a pair):
+//   memset       the tile counts, the scans' chunk sums and tickets
+//   pair_first   column j as lf_stage (its counts through the caller's
+//                scratch into counts1), active2, each active q1 counted by
+//                tile and symbol
+//   pair_scan<6> the tile counts to exclusive prefixes by symbol, and each
+//                tile's start (chunks of 2,048 tiles, each adding the sums
+//                of the chunks before it)
+//   pair_place1  each active read into its tile's bucket
+//   pair_rank1   the q1 tiles, eight a block at a time: inv1, inb, the
+//                second rank, q2; each active q2 counted by tile
+//   pair_scan<1> the q2 tiles' starts; m2 the total
+//   pair_place2  each active2 read into its q2 tile's bucket
+//   pair_rank2   the q2 tiles: inv2, and bk[inv2] = q2 - inv2
+//   pair_final   f1 (a binary search of bk), the carry, column j + 1's
+//                counts through the scratch into counts_out
+// A slot outside [0, cap] (a caller's error) is left out of every rank.
+
+constexpr int kPairTileShift = 14;
+constexpr int kPairTile = 1 << kPairTileShift;  // slots a tile
+constexpr int kPairWords = kPairTile / 32;      // bitmap words a tile and symbol
+constexpr int kPairRow = 8;                     // round-1 tile row: 6 counts, start, pad
+constexpr int kTileGroup = kThreads / 32;       // tiles a rank block takes at once, a warp each
+constexpr int kWarpSlots = 128;                 // a warp ranks a tile of up to this many alone
+constexpr int kScanRows1 = 8, kScanRows2 = 32;  // tile rows a scan thread: round 1, round 2
+constexpr int kMaxScanBlocks = 128;             // scan chunks of the tiles of [0, 2^31)
+constexpr int kMaxRankBlocks = 2048;            // rank grid cap (grid-stride loop)
+static_assert(kPairWords % kThreads == 0, "whole bitmap words a thread");
+static_assert(((1 << (31 - kPairTileShift)) + 2) <= kMaxScanBlocks * kThreads * kScanRows1,
+              "the round-1 scan covers every tile of a capacity below 2^31");
+
+struct PairArgs {
+  const int32_t* table;
+  const uint8_t* v1;       // stage-view rows j and j + 1
+  const uint8_t* v2;
+  const int32_t* lengths;
+  const int32_t* P;
+  const uint8_t* prev_v;
+  const int32_t* counts;   // [6] before column j
+  int32_t* q;              // [2N]: q1, then f1 | q2
+  uint8_t* active;         // [2N]
+  int32_t* P_out;
+  uint8_t* prev_out;
+  int32_t* counts1;        // [6] after column j (work)
+  int32_t* counts_out;     // [6] after column j + 1
+  int32_t* scratch;        // lf_stage's accumulators and ticket
+  int32_t* tiles1;         // [(T + 1) * kPairRow] q1 tiles by symbol
+  int32_t* tiles2;         // [T + 1] q2 tiles
+  int32_t* loc;            // [N] each read's place in its bucket
+  int2* bucket;            // [N] (read, slot in tile << 3 | symbol)
+  int32_t* bk;             // [N] sort(q2) - k
+  int64_t N;
+  int64_t n_tiles;         // T: tiles of [0, cap]
+  int cap;
+  int j;
+  int nst;
+};
+
+// The tile of slot s, or -1 when s is outside the tiles.
+__device__ __forceinline__ int64_t pair_tile(int s, int64_t n_tiles) {
+  const int64_t t = s >> kPairTileShift;
+  return s >= 0 && t < n_tiles ? t : -1;
+}
+
+// Column j for every read, as lf_stage_kernel: q1 into q[0, N), active1
+// and active2, counts1 = counts + column j's active symbols (through the
+// scratch); q[N + i] = 0 where active1 is not (no later kernel writes it
+// there); each active q1 counted by tile and symbol, the count before the
+// read's add its place in the bucket.
+__global__ void __launch_bounds__(kThreads) pair_first_kernel(const PairArgs a) {
+  __shared__ int s_c[kSyms];
+  __shared__ int s_bump[kSyms];
+  stage_setup(s_c, s_bump, a.counts, a.nst);
+  int acc[kSyms] = {0, 0, 0, 0, 0, 0};
+  for (int64_t base = (int64_t)blockIdx.x * kThreads; base < a.N;
+       base += (int64_t)gridDim.x * kThreads) {
+    const int64_t i = base + threadIdx.x;
+    int sym = -1;
+    if (i < a.N) {
+      const int f = a.prev_v[i];
+      const int vv = a.v1[i];
+      const int len = a.lengths[i];
+      const bool act1 = a.j <= len + 1, act2 = a.j + 1 <= len + 1;
+      const int q1 = s_c[f] + rank_at(a.table, f, a.P[i]);
+      a.q[i] = q1;
+      a.active[i] = act1;
+      a.active[a.N + i] = act2;
+      if (act1) {
+        sym = vv;
+        const int64_t t = pair_tile(q1, a.n_tiles);
+        if (t >= 0 && vv < kSyms) a.loc[i] = atomicAdd(&a.tiles1[t * kPairRow + vv], 1);
+      } else {
+        a.q[a.N + i] = 0;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kSyms; ++s) acc[s] += __popc(__ballot_sync(kFull, sym == s));
+  }
+  add_stage_counts(acc, s_bump, a.counts, a.counts1, a.scratch);
+}
+
+// Rows 0..rows-1 of S ints, K counts each, to exclusive prefixes over the
+// rows in place; where S > K, int K of a row gets the sum of its K
+// prefixes (the row's start in a bucket array ordered by row, then by
+// column). The last row holds zeros and gets the totals. One pass: R rows
+// a thread, kThreads * R a block; a block takes a ticket (its chunk, in
+// launch order), publishes its chunk's sums (agg, a flagged 64-bit word a
+// count) and adds those of every chunk before it, each published by a
+// block that took its ticket earlier and publishes before it waits. agg
+// (u64 [kMaxScanBlocks * K]) and ticket are zeroed before the launch.
+template <int K, int S, int R>
+__global__ void __launch_bounds__(kThreads)
+pair_scan_kernel(int32_t* __restrict__ rows_arr, int64_t rows,
+                 unsigned long long* __restrict__ agg, unsigned* __restrict__ ticket) {
+  __shared__ int s_chunk;
+  __shared__ int s_base[K];
+  if (threadIdx.x == 0) s_chunk = (int)atomicAdd(ticket, 1u);
+  if (threadIdx.x < K) s_base[threadIdx.x] = 0;
+  __syncthreads();
+  const int b = s_chunk;
+  const int64_t r0 = ((int64_t)b * kThreads + threadIdx.x) * R;
+  int c[R][K], x[K], total[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) x[s] = 0;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      c[k][s] = r0 + k < rows ? rows_arr[(r0 + k) * S + s] : 0;
+      x[s] += c[k][s];
+    }
+  }
+  block_exclusive_scan<kThreads, K>(x, total);
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+    if (threadIdx.x == s) store_state(agg + (int64_t)b * K + s, 1ull << 32, total[s]);
+  for (int k = threadIdx.x; k < b * K; k += kThreads) {
+    unsigned long long v;
+    do {
+      v = load_state(agg + k);
+    } while (!(v >> 32));
+    atomicAdd(&s_base[k % K], (int)(uint32_t)v);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (r0 + k >= rows) break;
+    int start = 0;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const int pre = s_base[s] + x[s];
+      rows_arr[(r0 + k) * S + s] = pre;
+      start += pre;
+      x[s] += c[k][s];
+    }
+    if (S > K) rows_arr[(r0 + k) * S + K] = start;
+  }
+}
+
+// Each active read with a slot in the tiles into its q1 tile's bucket, at
+// the tile's start + its symbols before the read's + its place.
+__global__ void __launch_bounds__(kThreads) pair_place1_kernel(const PairArgs a) {
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < a.N;
+       i += (int64_t)gridDim.x * kThreads) {
+    if (!a.active[i]) continue;
+    const int q1 = a.q[i];
+    const int vv = a.v1[i];
+    const int64_t t = pair_tile(q1, a.n_tiles);
+    if (t < 0 || vv >= kSyms) continue;
+    const int32_t* row = a.tiles1 + t * kPairRow;
+    int pos = row[kSyms] + a.loc[i];
+    for (int s = 0; s < vv; ++s) pos += row[kPairRow + s] - row[s];
+    a.bucket[pos] = make_int2((int)i, ((q1 & (kPairTile - 1)) << 3) | vv);
+  }
+}
+
+// The ranks of every tile's slots among the tile's own: for each entry
+// (read, slot in tile << 3 | symbol) of bucket[start, start + c) of tile
+// t, where {start, c} = tile(t), emit(t, start, entry, all, same) once,
+// with `all` the tile's slots below the entry's and `same` those of them
+// with its symbol (kS == 1: every symbol is one). A block takes
+// kTileGroup tiles at a time, a warp each, in a grid-stride loop; a warp
+// ranks a tile of at most kWarpSlots slots alone, every slot against every
+// other. The block then ranks each larger tile of the group together: a
+// bitmap of the tile a symbol in shared memory, its word prefixes (one
+// block scan) and popcounts. Every thread of the block calls it.
+template <int kS, class Tile, class Emit>
+__device__ __forceinline__ void rank_tiles(const int2* __restrict__ bucket, int64_t n_tiles,
+                                           Tile tile, Emit emit) {
+  __shared__ unsigned bits[kS][kPairWords];
+  __shared__ int pre[kS][kPairWords];
+  __shared__ int s_key[kTileGroup][kWarpSlots];
+  __shared__ int s_big[kTileGroup];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int64_t t0 = (int64_t)blockIdx.x * kTileGroup; t0 < n_tiles;
+       t0 += (int64_t)gridDim.x * kTileGroup) {
+    const int64_t t = t0 + warp;
+    const int2 sc = t < n_tiles ? tile(t) : make_int2(0, 0);
+    if (sc.y <= kWarpSlots) {
+      int2 e[kWarpSlots / 32];
+#pragma unroll
+      for (int k = 0; k < kWarpSlots / 32; ++k) {
+        const int idx = lane + 32 * k;
+        if (idx < sc.y) {
+          e[k] = bucket[sc.x + idx];
+          s_key[warp][idx] = kS == 1 ? e[k].y >> 3 : e[k].y;
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < kWarpSlots / 32; ++k) {
+        const int idx = lane + 32 * k;
+        if (idx >= sc.y) break;
+        const int key = kS == 1 ? e[k].y >> 3 : e[k].y;
+        int all = 0, same = 0;
+        for (int m = 0; m < sc.y; ++m) {
+          const int o = s_key[warp][m];
+          if (kS == 1) {
+            all += o < key;
+          } else {
+            const bool below = (o >> 3) < (key >> 3);
+            all += below;
+            same += below && (o & 7) == (key & 7);
+          }
+        }
+        emit(t, sc.x, e[k], all, kS == 1 ? all : same);
+      }
+    }
+    if (lane == 0) s_big[warp] = sc.y > kWarpSlots;
+    __syncthreads();
+    for (int w = 0; w < kTileGroup; ++w) {
+      if (!s_big[w]) continue;  // the same for every thread
+      const int64_t tb = t0 + w;
+      const int2 sb = tile(tb);
+      constexpr int kPer = kPairWords / kThreads;  // words a thread
+      for (int i = threadIdx.x; i < kS * kPairWords; i += kThreads) (&bits[0][0])[i] = 0u;
+      __syncthreads();
+      for (int k = threadIdx.x; k < sb.y; k += kThreads) {
+        const int y = bucket[sb.x + k].y;
+        const int slot = y >> 3;
+        atomicOr(&bits[kS == 1 ? 0 : y & 7][slot >> 5], 1u << (slot & 31));
+      }
+      __syncthreads();
+      int x[kS], total[kS];
+#pragma unroll
+      for (int s = 0; s < kS; ++s) {
+        x[s] = 0;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) x[s] += __popc(bits[s][kPer * threadIdx.x + i]);
+      }
+      block_exclusive_scan<kThreads, kS>(x, total);
+#pragma unroll
+      for (int s = 0; s < kS; ++s) {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          pre[s][kPer * threadIdx.x + i] = x[s];
+          x[s] += __popc(bits[s][kPer * threadIdx.x + i]);
+        }
+      }
+      __syncthreads();
+      for (int k = threadIdx.x; k < sb.y; k += kThreads) {
+        const int2 e = bucket[sb.x + k];
+        const int slot = e.y >> 3, sym = kS == 1 ? 0 : e.y & 7, wd = slot >> 5;
+        const unsigned below = (1u << (slot & 31)) - 1u;
+        int all = 0, same = 0;
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          const int r = pre[s][wd] + __popc(bits[s][wd] & below);
+          all += r;
+          if (s == sym) same = r;
+        }
+        emit(tb, sb.x, e, all, same);
+      }
+      __syncthreads();  // bits, pre and the scan's warp sums free again
+    }
+    __syncthreads();  // s_key and s_big free again
+  }
+}
+
+// Each q1 tile: each active read's inv1 and inb, its second rank at
+// old_pos and q2 = C1[v1] + rank(v1, old_pos) + inb into q[N + i] (0 where
+// active2 is not); each active q2 counted by tile, the count before the
+// read's add its place in the bucket.
+__global__ void __launch_bounds__(kThreads) pair_rank1_kernel(const PairArgs a) {
+  __shared__ int s_c[kSyms];  // the C array after column j
+  load_c(s_c, a.counts1, a.nst);
+  __syncthreads();
+  rank_tiles<kSyms>(
+      a.bucket, a.n_tiles,
+      [&](int64_t t) {
+        const int32_t* row = a.tiles1 + t * kPairRow;
+        return make_int2(row[kSyms], row[kPairRow + kSyms] - row[kSyms]);
+      },
+      [&](int64_t t, int start, int2 e, int all, int same) {
+        const int64_t i = e.x;
+        const int vv = e.y & 7;
+        const int q1 = (int)(t << kPairTileShift) + (e.y >> 3);
+        const int old_pos = min(max(q1 - (start + all), 0), a.cap);
+        const int q2 = s_c[vv] + rank_at(a.table, vv, old_pos) + a.tiles1[t * kPairRow + vv] +
+                       same;
+        if (a.active[a.N + i]) {
+          a.q[a.N + i] = q2;
+          const int64_t t2 = pair_tile(q2, a.n_tiles);
+          if (t2 >= 0) a.loc[i] = atomicAdd(&a.tiles2[t2], 1);
+        } else {
+          a.q[a.N + i] = 0;
+        }
+      });
+}
+
+// Each active2 read with a slot in the tiles into its q2 tile's bucket.
+__global__ void __launch_bounds__(kThreads) pair_place2_kernel(const PairArgs a) {
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < a.N;
+       i += (int64_t)gridDim.x * kThreads) {
+    if (!a.active[a.N + i]) continue;
+    const int q2 = a.q[a.N + i];
+    const int64_t t = pair_tile(q2, a.n_tiles);
+    if (t < 0) continue;
+    a.bucket[a.tiles2[t] + a.loc[i]] = make_int2((int)i, (q2 & (kPairTile - 1)) << 3);
+  }
+}
+
+// Each q2 tile: each active2 read's inv2, and bk[inv2] = q2 - inv2.
+__global__ void __launch_bounds__(kThreads) pair_rank2_kernel(const PairArgs a) {
+  rank_tiles<1>(
+      a.bucket, a.n_tiles,
+      [&](int64_t t) { return make_int2(a.tiles2[t], a.tiles2[t + 1] - a.tiles2[t]); },
+      [&](int64_t t, int start, int2 e, int all, int) {
+        const int inv2 = start + all;
+        a.bk[inv2] = (int)(t << kPairTileShift) + (e.y >> 3) - inv2;
+      });
+}
+
+// Every read: f1 = q1 + #{k < m2: bk[k] <= q1} (bk is non-decreasing over
+// its m2 entries) into q[i] (0 where active1 is not); P and prev_v moved to
+// column j + 1's slot and symbol where active2, else column j's where
+// active1; counts_out = counts1 + column j + 1's active symbols (through
+// the scratch).
+__global__ void __launch_bounds__(kThreads) pair_final_kernel(const PairArgs a) {
+  __shared__ int s_bump[kSyms];
+  if (threadIdx.x < kSyms) s_bump[threadIdx.x] = 0;
+  __syncthreads();
+  const int m2 = a.tiles2[a.n_tiles];
+  int acc[kSyms] = {0, 0, 0, 0, 0, 0};
+  for (int64_t base = (int64_t)blockIdx.x * kThreads; base < a.N;
+       base += (int64_t)gridDim.x * kThreads) {
+    const int64_t i = base + threadIdx.x;
+    int sym = -1;
+    if (i < a.N) {
+      const bool act1 = a.active[i], act2 = a.active[a.N + i];
+      int f1 = 0;
+      if (act1) {
+        const int q1 = a.q[i];
+        int lo = 0, hi = m2;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (a.bk[mid] <= q1) lo = mid + 1;
+          else hi = mid;
+        }
+        f1 = q1 + lo;
+      }
+      a.q[i] = f1;
+      a.P_out[i] = act2 ? a.q[a.N + i] : act1 ? f1 : a.P[i];
+      const int v2 = a.v2[i];
+      a.prev_out[i] = (uint8_t)(act2 ? v2 : act1 ? a.v1[i] : a.prev_v[i]);
+      if (act2) sym = v2;
+    }
+#pragma unroll
+    for (int s = 0; s < kSyms; ++s) acc[s] += __popc(__ballot_sync(kFull, sym == s));
+  }
+  add_stage_counts(acc, s_bump, a.counts1, a.counts_out, a.scratch);
+}
+
+// The work array of lf_pair, in int32 words: counts1; the two tile arrays
+// and the two scans' chunk sums and tickets (zeroed by the launcher); then
+// loc, the bucket and bk. Every part starts on an 8 B boundary.
+struct PairLayout {
+  int64_t counts1 = 0, tiles1 = 8, tiles2, agg1, agg2, tickets, loc, bucket, bk, total;
+  PairLayout(int64_t N, int64_t n_tiles) {
+    tiles2 = tiles1 + (n_tiles + 1) * kPairRow;
+    agg1 = tiles2 + ((n_tiles + 2) & ~int64_t(1));
+    agg2 = agg1 + 2 * kMaxScanBlocks * kSyms;  // u64 a chunk and count
+    tickets = agg2 + 2 * kMaxScanBlocks;
+    loc = tickets + 2;
+    bucket = loc + ((N + 1) & ~int64_t(1));
+    bk = bucket + 2 * N;
+    total = bk + N;
+  }
+};
+
+int64_t pair_tiles_of(int64_t cap) { return (cap >> kPairTileShift) + 1; }
+
 
 struct WalkArgs {
   const int32_t* table;
@@ -451,6 +884,88 @@ int msbwt_lf_stage(const void* table, const void* v, const void* lengths, const 
       (const int32_t*)table, (const uint8_t*)v, (const int32_t*)lengths, (const int32_t*)P,
       (const uint8_t*)prev_v, (const int32_t*)counts, (int32_t*)q, (uint8_t*)active,
       (int32_t*)P_out, (uint8_t*)prev_out, (int32_t*)counts_out, (int32_t*)scratch, N, j, nst);
+  return (int)cudaGetLastError();
+}
+
+// Slot positions per lf_pair tile (the tests' tile edge cases read it).
+int msbwt_lf_pair_tile() { return kPairTile; }
+
+// lf_pair's work array for N reads and a buffer of cap positions, in int32
+// words (the caller allocates it, 16 B-aligned).
+int64_t msbwt_lf_pair_work_len(int64_t N, int64_t cap) {
+  return PairLayout(N, pair_tiles_of(cap)).total;
+}
+
+// Two BCR columns j, j + 1 for one merge pass: table i32 [rows, 32] with
+// rows > cap / 128 (16 B-aligned), v1 / v2 = stage-view rows j and j + 1
+// u8 [N], lengths i32 [N], P i32 [N], prev_v u8 [N], counts i32 [6] ->
+// q i32 [2N] (column j's final slots, then column j + 1's; 0 where
+// inactive), active bool [2N], P_out i32 [N], prev_out u8 [N], counts_out
+// i32 [6] (after both columns). scratch i32 [8] is lf_stage's (zeroed,
+// left zeroed); work i32 [msbwt_lf_pair_work_len(N, cap)] is the call's
+// own. Nine device events on `stream`; returns cudaGetLastError().
+int msbwt_lf_pair(const void* table, const void* v1, const void* v2, const void* lengths,
+                  const void* P, const void* prev_v, const void* counts, void* q,
+                  void* active, void* P_out, void* prev_out, void* counts_out,
+                  void* scratch, void* work, int64_t N, int64_t cap, int j, int nst,
+                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N == 0) {
+    cudaMemcpyAsync(counts_out, counts, kSyms * sizeof(int32_t), cudaMemcpyDeviceToDevice, st);
+    return (int)cudaGetLastError();
+  }
+  const int64_t n_tiles = pair_tiles_of(cap);
+  const PairLayout l(N, n_tiles);
+  int32_t* w = (int32_t*)work;
+  PairArgs a = {};
+  a.table = (const int32_t*)table;
+  a.v1 = (const uint8_t*)v1;
+  a.v2 = (const uint8_t*)v2;
+  a.lengths = (const int32_t*)lengths;
+  a.P = (const int32_t*)P;
+  a.prev_v = (const uint8_t*)prev_v;
+  a.counts = (const int32_t*)counts;
+  a.q = (int32_t*)q;
+  a.active = (uint8_t*)active;
+  a.P_out = (int32_t*)P_out;
+  a.prev_out = (uint8_t*)prev_out;
+  a.counts1 = w + l.counts1;
+  a.counts_out = (int32_t*)counts_out;
+  a.scratch = (int32_t*)scratch;
+  a.tiles1 = w + l.tiles1;
+  a.tiles2 = w + l.tiles2;
+  a.loc = w + l.loc;
+  a.bucket = reinterpret_cast<int2*>(w + l.bucket);
+  a.bk = w + l.bk;
+  a.N = N;
+  a.n_tiles = n_tiles;
+  a.cap = (int)cap;
+  a.j = j;
+  a.nst = nst;
+  const int64_t rows = n_tiles + 1;
+  const int64_t scan1 = (rows + kThreads * kScanRows1 - 1) / (kThreads * kScanRows1);
+  const int64_t scan2 = (rows + kThreads * kScanRows2 - 1) / (kThreads * kScanRows2);
+  if (scan1 > kMaxScanBlocks || scan2 > kMaxScanBlocks || cap >= (int64_t(1) << 31))
+    return (int)cudaErrorInvalidValue;
+  int64_t blocks = (N + kThreads - 1) / kThreads;
+  if (blocks > kMaxStageBlocks) blocks = kMaxStageBlocks;
+  int64_t rank_blocks = (n_tiles + kTileGroup - 1) / kTileGroup;
+  if (rank_blocks > kMaxRankBlocks) rank_blocks = kMaxRankBlocks;
+  const unsigned g = (unsigned)blocks, gr = (unsigned)rank_blocks;
+  unsigned long long* agg1 = reinterpret_cast<unsigned long long*>(w + l.agg1);
+  unsigned long long* agg2 = reinterpret_cast<unsigned long long*>(w + l.agg2);
+  unsigned* tickets = reinterpret_cast<unsigned*>(w + l.tickets);
+  cudaMemsetAsync(a.tiles1, 0, (l.loc - l.tiles1) * sizeof(int32_t), st);
+  pair_first_kernel<<<g, kThreads, 0, st>>>(a);
+  pair_scan_kernel<kSyms, kPairRow, kScanRows1><<<(unsigned)scan1, kThreads, 0, st>>>(
+      a.tiles1, rows, agg1, tickets);
+  pair_place1_kernel<<<g, kThreads, 0, st>>>(a);
+  pair_rank1_kernel<<<gr, kThreads, 0, st>>>(a);
+  pair_scan_kernel<1, 1, kScanRows2><<<(unsigned)scan2, kThreads, 0, st>>>(
+      a.tiles2, rows, agg2, tickets + 1);
+  pair_place2_kernel<<<g, kThreads, 0, st>>>(a);
+  pair_rank2_kernel<<<gr, kThreads, 0, st>>>(a);
+  pair_final_kernel<<<g, kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -38,12 +38,12 @@ copies nothing: positions past a bucket's capacity still hold PAD from the
 initial fill.
 
 Radix 2. ``build_radix`` picks how many columns one merge pass consumes:
-radix 2 (``_stage_step2``) ranks two columns from one table and inserts
-both through one pass of 2N slots, which halves the passes over the buffer
-at the cost of N-sized sorts a pair. It can pay only where N is small next
-to the buffer, i.e. for long reads, and on the H100 it did not reliably
-at any length measured, so it runs only where ``MSBWT_TPU_RADIX=2`` forces
-it.
+radix 2 (``ops.lf.lf_pair``, the port of ``_pallas_stage_step2``: one
+call of nine device events a pair on the card) ranks two columns from one
+table and inserts both through one pass of 2N slots, which halves the passes over the buffer
+at the cost of N-sized work a pair. It pays only where N is small next to
+the buffer, i.e. for long reads: the JAX package's rule picks it for a
+batch of mean length 999 and up.
 
 The JAX package's XLA scatter engine ``bcr_insert_core`` has no counterpart
 of its own: the build functions' ``merge=`` takes the plain pass
@@ -61,14 +61,14 @@ import torch
 from rust_msbwt_tpu_torch.ops.alphabet import VC_LEN
 from rust_msbwt_tpu_torch.ops.lf import (
     _bump_counts,
-    _cvec,
+    lf_pair,
     lf_stage,
     lf_walk_cyclic,
     lf_walk_lengths,
     stage_scratch,
 )
 from rust_msbwt_tpu_torch.ops.merge_insert import ROW, merge_insert
-from rust_msbwt_tpu_torch.ops.packed_rank import PackedOccIndex, rank_packed
+from rust_msbwt_tpu_torch.ops.packed_rank import PackedOccIndex
 from rust_msbwt_tpu_torch.ops.rank import (
     BIN,
     PAD,
@@ -77,7 +77,6 @@ from rust_msbwt_tpu_torch.ops.rank import (
 )
 
 _I32 = torch.int32
-_I32_MAX = torch.iinfo(torch.int32).max  # radix-2 sort sentinel: above every slot
 
 
 # ---------------------------------------------------------------------------
@@ -333,19 +332,38 @@ def pair_buckets(buckets: list[tuple[int, int, int]], L: int) -> list[tuple[int,
     return out
 
 
-def build_radix() -> int:
-    """Columns one merge pass consumes (1 or 2): 2 only where
-    ``MSBWT_TPU_RADIX=2`` forces it. There is no automatic radix 2: the
-    ``profile_build.py`` radix sweep on the H100 (PERF.md) found no read
-    length (250, 500, 1,000 bp) where it was faster in every run, since a
-    pair costs more host launches than the pass it saves and the stage loop
-    is host-bound at long reads. (The JAX package picks 2 by itself from
-    999 bp on.)
+def build_radix(n_cap: int | None = None, n_reads: int | None = None,
+                n_base: int = 0) -> int:
+    """Columns one merge pass consumes (1 or 2), by the JAX package's rule:
+    2 where the new batch's mean length + 1, ``(n_cap - n_base) /
+    n_reads``, is at least 1,000 (a long-read batch: the pass saved is
+    capacity-sized, a pair's extra work read-sized), else 1; an unknown
+    shape stays at 1. ``MSBWT_TPU_RADIX=1|2`` forces either.
 
-    >>> build_radix()
+    The rule holds on the H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
+    with ``lf_pair`` the radix-2 device loop over 500.5M symbols of 1,000
+    bp reads ran 1.372-1.408x as fast as radix 1 in ``chip_smoke.py``
+    phase 12a's three turns and 1.314-1.402x in ``profile_build.py``'s
+    sweep, every turn a win; at 500 bp 1.153-1.270x, at 250 bp
+    0.941-1.039x (the rule keeps radix 1 below 999 bp).
+
+    >>> build_radix(505_000_000, 5_000_000)   # 100 bp short reads
+    1
+    >>> build_radix(500_500_000, 1_000_000)   # 500 bp
+    1
+    >>> build_radix(500_500_000, 500_000)     # 1,000 bp long reads
+    2
+    >>> build_radix(505_101_000, 1_000, n_base=505_000_000)  # extend, L = 100
+    1
+    >>> build_radix()                         # unknown shape: stay at 1
     1
     """
-    return 2 if os.environ.get("MSBWT_TPU_RADIX") == "2" else 1
+    v = os.environ.get("MSBWT_TPU_RADIX", "auto")
+    if v in ("1", "2"):
+        return int(v)
+    if n_cap and n_reads and (n_cap - n_base) / n_reads >= 1000:
+        return 2
+    return 1
 
 
 def index_from_symbols(sym: torch.Tensor, *, merge=merge_insert
@@ -402,79 +420,6 @@ def _stage1_slots(p: dict, cols, lengths, base, base_index, base_rot_max, merge)
     return base_pos + ar
 
 
-def pair_order(q1: torch.Tensor, active1: torch.Tensor, cap: int):
-    """Column j's slots ``q1`` (int32, distinct where ``active1``) in sorted
-    order: ``(order1, inv1, old_pos)``. ``inv1[i]`` is the number of active
-    slots below read i's (a stable argsort puts the inactive reads, masked
-    to the int32 maximum, after every slot below 2^31 - 1), so
-    ``old_pos = q1 - inv1``, clamped to [0, cap], is the slot's position in
-    the buffer before column j's inserts."""
-    order1 = torch.argsort(torch.where(active1, q1, _I32_MAX), stable=True)
-    inv1 = torch.empty_like(q1)
-    inv1[order1] = torch.arange(q1.shape[0], dtype=_I32, device=q1.device)
-    return order1, inv1, (q1 - inv1).clamp_(0, cap)
-
-
-def pair_slots(q1, v1, active1, active2, order1, inv1, base2):
-    """The radix-2 slot math of one column pair, given column j's slots
-    ``q1`` (in the buffer B1 = B0 + column j's inserts), ``pair_order``'s
-    ``order1`` / ``inv1``, and ``base2 = cvec1[v1] + rank_B0(v1, old_pos)``
-    (the C array after column j's inserts). Returns int32 ``(f1, q2)``:
-
-    * ``q2 = base2 + inb``, column j+1's final slots, where ``inb[i]``
-      counts the active reads whose ``q1`` lies below read i's with the same
-      symbol ``v1``: ``rank_B1(v1, q1) = rank_B0(v1, old_pos) + inb``. It is
-      one 1-D scan of the ``[6, N]`` one-hot of ``v1`` in q1 order, read at
-      ``(v1, k)`` less the count of the rows before (a scan along the rows
-      of the ``[6, N]`` view runs one block a row, ~0.65 ms at N = 500k on
-      the H100);
-    * ``f1 = q1 + #{k: sort(q2)_k - k <= q1}``, column j's slots moved past
-      column j+1's (stable merge). Over the ``m2`` active slots
-      ``sort(q2)_k - k`` is non-decreasing; the tail past them is set to
-      the int32 maximum on the device (no host sync), so the array stays
-      sorted for any q1 < 2^31 - 1 and a binary search is exact.
-
-    Inactive reads get values that no pass reads."""
-    dev = q1.device
-    N = q1.shape[0]
-    ar = torch.arange(N, dtype=_I32, device=dev)
-    v_sorted = torch.where(active1, v1, VC_LEN)[order1]
-    onehot = torch.arange(VC_LEN, dtype=torch.uint8, device=dev)[:, None] == v_sorted
-    cs = torch.cumsum(onehot.view(-1), 0, dtype=_I32)  # row s after every row < s
-    before = torch.cat([cs.new_zeros(1), cs.view(VC_LEN, N)[:-1, -1]])
-    row = v_sorted.clamp(max=VC_LEN - 1).long()
-    inb_sorted = cs[row * N + ar] - before[row] - 1
-    q2 = base2 + inb_sorted[inv1.long()]
-    q2s = torch.sort(torch.where(active2, q2, _I32_MAX)).values
-    bk = torch.where(ar < active2.sum(), q2s - ar, _I32_MAX)
-    f1 = q1 + torch.searchsorted(bk, q1, right=True, out_int32=True)
-    return f1, q2
-
-
-def _stage_step2(j, tab, cap, nst, cols, lengths, P, counts, prev_v, *, scratch=None):
-    """Two BCR columns (j, j + 1) through one pass: the port of the JAX
-    package's ``_pallas_stage_step2``. Column j+1's rank over the buffer
-    after column j's inserts comes from the current table without that
-    buffer: ``rank_B1(s, q1) = rank_B0(s, q1 - c) + #{same-symbol inserts
-    below q1}`` (``pair_order``, ``pair_slots``). Reads inactive in column
-    j+1 (odd tails of ragged reads) insert only ``v1``. Returns the pass's
-    ``(q, v, active)`` over 2N slots and the carry after it; no host sync.
-    ``scratch`` is column j's ``lf_stage`` scratch."""
-    q1, v1, active1, _, counts1, _ = lf_stage(j, tab, nst, cols, lengths, P, counts, prev_v,
-                                              scratch=scratch)
-    active2 = j + 1 <= lengths + 1  # implies active1
-    v2 = cols[j + 1]
-    order1, inv1, old_pos = pair_order(q1, active1, cap)
-    v1l = v1.long()
-    base2 = _cvec(counts1, nst)[v1l] + rank_packed(tab, v1l, old_pos)
-    f1, q2 = pair_slots(q1, v1, active1, active2, order1, inv1, base2)
-    q = torch.cat([torch.where(active1, f1, 0), torch.where(active2, q2, 0)])
-    P = torch.where(active2, q2, torch.where(active1, f1, P))
-    prev_v = torch.where(active2, v2, torch.where(active1, v1, prev_v))
-    return (q, torch.cat([v1, v2]), torch.cat([active1, active2]), P,
-            _bump_counts(counts1, v2, active2), prev_v)
-
-
 def _build_device(p: dict, device, merge, base=None, base_index=None,
                   base_rot_max=None):
     """Run stage 1 and the bucketed stage loop on ``device``, onto ``base``
@@ -482,15 +427,15 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
     when the caller holds it), one column a pass or, where ``build_radix``
     picks 2, two. Returns the final buffer (uint8 [aligned n_cap], PAD past
     n_cap), its packed table (int32 [aligned n_cap / 128 + 1, 32]) and the
-    symbol counts. Every column's ``lf_stage`` gets the build's own scratch,
-    so builds on two streams share no accumulator."""
+    symbol counts. Every ``lf_stage`` and ``lf_pair`` call gets the build's
+    own scratch, so builds on two streams share no accumulator."""
     N, L, n0, n_cap = p["N"], p["L"], p["n0"], p["n_cap"]
     cols = torch.from_numpy(p["cols"]).to(device)
     lengths = torch.from_numpy(p["lengths"]).to(device)
     # the base's slots first: its index (when derived here) is freed before
     # the build's buffers are allocated
     q1 = _stage1_slots(p, cols, lengths, base, base_index, base_rot_max, merge)
-    radix = build_radix()
+    radix = build_radix(n_cap, N, n0)
     buckets = bucket_schedule(n0, N, L, n_cap, BIN)
     if radix == 2:
         buckets = pair_buckets(buckets, L)
@@ -525,7 +470,7 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
         j = ja
         while j < jb:
             if radix == 2 and j + 1 < jb:
-                q, v, active, P, counts, prev_v = _stage_step2(
+                q, v, active, P, counts, prev_v = lf_pair(
                     j, tab, cap, nst, cols, lengths, P, counts, prev_v, scratch=scratch)
                 j += 2
             else:

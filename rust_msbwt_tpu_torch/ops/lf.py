@@ -13,6 +13,13 @@ host launches a column or a walk step. Here each is one call:
   kernel, the counts summed inside it in the caller's ``int32 [8]``
   scratch, which each launch leaves zeroed (no memset). ``lf_stage_plain``
   is the plain version.
+* **lf_pair** — two BCR columns j, j + 1 for one merge pass (radix 2):
+  column j as ``lf_stage``, column j + 1's slots from the same table, and
+  column j's moved past them. Nine device events a pair (a memset and
+  eight kernels, no sort: the slots are ranked by 16K-position tile), the
+  counts summed in the same scratch. ``lf_pair_plain`` (``lf_stage_plain``,
+  ``pair_order``, ``pair_slots``: argsorts and scans in torch) is the plain
+  version.
 * **lf_walk** — a batched LF walk run to its end inside one call. Four walks
   share the kernel file: ``lf_walk_cyclic`` (the extend's cyclic terminator
   search, symbols from the stage view) and ``lf_walk_extract`` (reads
@@ -40,10 +47,11 @@ import torch
 
 from rust_msbwt_tpu_torch.ops.alphabet import VC_LEN
 from rust_msbwt_tpu_torch.ops.merge_insert import ROW, _check
-from rust_msbwt_tpu_torch.ops.packed_rank import lf_step
+from rust_msbwt_tpu_torch.ops.packed_rank import lf_step, rank_packed
 from rust_msbwt_tpu_torch.ops.rank import BIN
 
 _I32 = torch.int32
+_I32_MAX = torch.iinfo(torch.int32).max  # radix-2 sort sentinel: above every slot
 LF_BLOCK = 32  # plain read-length walk: LF steps between two host checks
 STAGE_SCRATCH = 8  # lf_stage's scratch: six counts, the kernel's ticket, a pad
 
@@ -178,6 +186,137 @@ def lf_stage(j: int, tab: torch.Tensor, nst: int, cols: torch.Tensor,
 
 
 lf_stage.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# lf_pair: two BCR columns for one merge pass (radix 2)
+# ---------------------------------------------------------------------------
+
+def pair_order(q1: torch.Tensor, active1: torch.Tensor, cap: int):
+    """Column j's slots ``q1`` (int32, distinct where ``active1``) in sorted
+    order: ``(order1, inv1, old_pos)``. ``inv1[i]`` is the number of active
+    slots below read i's (a stable argsort puts the inactive reads, masked
+    to the int32 maximum, after every slot below 2^31 - 1), so
+    ``old_pos = q1 - inv1``, clamped to [0, cap], is the slot's position in
+    the buffer before column j's inserts."""
+    order1 = torch.argsort(torch.where(active1, q1, _I32_MAX), stable=True)
+    inv1 = torch.empty_like(q1)
+    inv1[order1] = torch.arange(q1.shape[0], dtype=_I32, device=q1.device)
+    return order1, inv1, (q1 - inv1).clamp_(0, cap)
+
+
+def pair_slots(q1, v1, active1, active2, order1, inv1, base2):
+    """The radix-2 slot math of one column pair, given column j's slots
+    ``q1`` (in the buffer B1 = B0 + column j's inserts), ``pair_order``'s
+    ``order1`` / ``inv1``, and ``base2 = cvec1[v1] + rank_B0(v1, old_pos)``
+    (the C array after column j's inserts). Returns int32 ``(f1, q2)``:
+
+    * ``q2 = base2 + inb``, column j+1's final slots, where ``inb[i]``
+      counts the active reads whose ``q1`` lies below read i's with the same
+      symbol ``v1``: ``rank_B1(v1, q1) = rank_B0(v1, old_pos) + inb``. It is
+      one 1-D scan of the ``[6, N]`` one-hot of ``v1`` in q1 order, read at
+      ``(v1, k)`` less the count of the rows before (a scan along the rows
+      of the ``[6, N]`` view runs one block a row, ~0.65 ms at N = 500k on
+      the H100);
+    * ``f1 = q1 + #{k: sort(q2)_k - k <= q1}``, column j's slots moved past
+      column j+1's (stable merge). Over the ``m2`` active slots
+      ``sort(q2)_k - k`` is non-decreasing; the tail past them is set to
+      the int32 maximum on the device (no host sync), so the array stays
+      sorted for any q1 < 2^31 - 1 and a binary search is exact.
+
+    Inactive reads get values that no pass reads."""
+    dev = q1.device
+    N = q1.shape[0]
+    ar = torch.arange(N, dtype=_I32, device=dev)
+    v_sorted = torch.where(active1, v1, VC_LEN)[order1]
+    onehot = torch.arange(VC_LEN, dtype=torch.uint8, device=dev)[:, None] == v_sorted
+    cs = torch.cumsum(onehot.view(-1), 0, dtype=_I32)  # row s after every row < s
+    before = torch.cat([cs.new_zeros(1), cs.view(VC_LEN, N)[:-1, -1]])
+    row = v_sorted.clamp(max=VC_LEN - 1).long()
+    inb_sorted = cs[row * N + ar] - before[row] - 1
+    q2 = base2 + inb_sorted[inv1.long()]
+    q2s = torch.sort(torch.where(active2, q2, _I32_MAX)).values
+    bk = torch.where(ar < active2.sum(), q2s - ar, _I32_MAX)
+    f1 = q1 + torch.searchsorted(bk, q1, right=True, out_int32=True)
+    return f1, q2
+
+
+def lf_pair_plain(j, tab, cap, nst, cols, lengths, P, counts, prev_v):
+    """Columns j and j + 1 through one pass, from the table ``tab`` before
+    column j's inserts (``cap`` the pass's capacity, ``nst`` strings in
+    all). Column j+1's rank over the buffer after column j's inserts:
+    ``rank_B1(s, q1) = rank_B0(s, q1 - c) + #{same-symbol inserts below
+    q1}`` (``pair_order``, ``pair_slots``). Reads inactive in column j+1
+    (odd tails of ragged reads) insert only ``v1``. Returns the pass's
+    ``(q, v, active)`` over 2N slots and the carry ``(P, counts, prev_v)``
+    after it; no host sync."""
+    q1, v1, active1, _, counts1, _ = lf_stage_plain(j, tab, nst, cols, lengths, P, counts,
+                                                    prev_v)
+    active2 = j + 1 <= lengths + 1  # implies active1
+    v2 = cols[j + 1]
+    order1, inv1, old_pos = pair_order(q1, active1, cap)
+    v1l = v1.long()
+    base2 = _cvec(counts1, nst)[v1l] + rank_packed(tab, v1l, old_pos)
+    f1, q2 = pair_slots(q1, v1, active1, active2, order1, inv1, base2)
+    q = torch.cat([torch.where(active1, f1, 0), torch.where(active2, q2, 0)])
+    P = torch.where(active2, q2, torch.where(active1, f1, P))
+    prev_v = torch.where(active2, v2, torch.where(active1, v1, prev_v))
+    return (q, torch.cat([v1, v2]), torch.cat([active1, active2]), P,
+            _bump_counts(counts1, v2, active2), prev_v)
+
+
+def lf_pair(j: int, tab: torch.Tensor, cap: int, nst: int, cols: torch.Tensor,
+            lengths: torch.Tensor, P: torch.Tensor, counts: torch.Tensor,
+            prev_v: torch.Tensor, *, scratch: torch.Tensor | None = None):
+    """Columns j and j + 1 for one merge pass, as ``lf_pair_plain``: the
+    port of the JAX package's ``_pallas_stage_step2`` (``ops/bcr.py:483``),
+    the stage loop's radix-2 step. Returns ``(q, v, active, P, counts,
+    prev_v)``, ``q`` / ``v`` / ``active`` over 2N slots, every output a new
+    tensor but ``v`` (the view ``cols[j:j + 2]`` flattened).
+
+    The arguments are ``lf_stage``'s, with ``cap`` the pass's capacity
+    (``tab`` must have more than ``cap // 128`` rows). On CUDA tensors one
+    call of nine device events and no host sync; it allocates a work array
+    of its own (the tile counts, buckets and ``sort(q2) - k``: ~16 B a read
+    and 36 B a 16K-position tile). ``scratch`` is ``lf_stage``'s, used for
+    both columns' counts and left zeroed, so the stage loop passes its one
+    scratch to every ``lf_stage`` and ``lf_pair`` call; launches that may
+    overlap need a scratch each. Unused on CPU tensors.
+    """
+    from rust_msbwt_tpu_torch import _kernels
+
+    dev = _device_of(tab)
+    if dev is None:
+        return lf_pair_plain(j, tab, cap, nst, cols, lengths, P, counts, prev_v)
+    N = P.shape[0]
+    if not 0 <= j < cols.shape[0] - 1:
+        raise ValueError(f"columns {j}, {j + 1} outside the stage view of {cols.shape[0]} rows")
+    if not 0 <= cap < 2**31 or tab.shape[0] <= cap // BIN:
+        raise ValueError(f"lf_pair: capacity {cap} over a table of {tab.shape[0]} rows")
+    if not 0 <= nst < 2**31:
+        raise ValueError("lf_pair: the string count must fit int32")
+    _check("cols", cols, torch.uint8, (cols.shape[0], N), dev)
+    _check("lengths", lengths, _I32, (N,), dev)
+    _check("P", P, _I32, (N,), dev)
+    _check("prev_v", prev_v, torch.uint8, (N,), dev)
+    _check("counts", counts, _I32, (VC_LEN,), dev)
+    if scratch is None:
+        scratch = stage_scratch(dev)
+    else:
+        _check("scratch", scratch, _I32, (STAGE_SCRATCH,), dev)
+    work = torch.empty(_kernels.load().msbwt_lf_pair_work_len(N, cap), dtype=_I32, device=dev)
+    q = torch.empty(2 * N, dtype=_I32, device=dev)
+    active = torch.empty(2 * N, dtype=torch.bool, device=dev)
+    P_out = torch.empty(N, dtype=_I32, device=dev)
+    prev_out = torch.empty(N, dtype=torch.uint8, device=dev)
+    counts_out = torch.empty(VC_LEN, dtype=_I32, device=dev)
+    _launch("msbwt_lf_pair", tab, cols[j], cols[j + 1], lengths, P, prev_v, counts, q, active,
+            P_out, prev_out, counts_out, scratch, work, N, cap, j, nst, dev=dev)
+    lf_pair.launches += 1
+    return q, cols[j: j + 2].view(-1), active, P_out, counts_out, prev_out
+
+
+lf_pair.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,11 @@ onto a non-empty base, and a streamed build — the query tiers (pair index,
 run tier, a chunked deep prefix cache, ``RleBWT``'s policy), the H-M and
 doubling merges and two gloo ranks sharing the card, each against the same
 functions on the CPU; radix-2 builds (kernel == radix 1 == plain) and one
-radix-2 step against the CPU's; the profiling timers and trace, and the
+radix-2 step against the CPU's; ``lf_pair`` (the radix-2 column pair)
+against its plain twin with slots on 16K tile edges, a full tile, empty
+tiles, N = 1, no read active in the second column, slots past 2^30 and
+1.1M reads, called again and again with ``lf_stage`` on one scratch, on
+two streams at once, and bad inputs refused; the profiling timers and trace, and the
 session-health memory probe; the LF-step kernels (``lf_stage``, the four
 ``lf_walk`` walks) against their plain twins on the same CUDA tensors at
 edge shapes, and builds, extends, streamed builds, extract and locate
@@ -400,9 +404,11 @@ def _radix_reads(kind, tile):
                                                 ("edge1", True), ("many_tiles", True),
                                                 ("ragged", True), ("ragged", False)])
 def test_radix2_build_matches_radix1_and_plain(cuda, monkeypatch, kind, sorted_insert):
-    """A radix-2 build (2N slots a pass, unsorted) through the kernel ==
-    the radix-1 build == the radix-2 build through the plain pass."""
+    """A radix-2 build (2N slots a pass, unsorted; ``lf_pair`` a column
+    pair) through the kernels == the radix-1 build == the radix-2 build
+    through the plain pass and LF steps (no kernel launched)."""
     from rust_msbwt_tpu_torch import _kernels
+    from rust_msbwt_tpu_torch.ops import bcr, lf
 
     reads, lengths = _radix_reads(kind, _kernels.load().msbwt_merge_tile())
     if kind.startswith("edge"):
@@ -412,13 +418,19 @@ def test_radix2_build_matches_radix1_and_plain(cuda, monkeypatch, kind, sorted_i
     for name, radix, merge in (("r2", 2, merge_insert), ("r1", 1, merge_insert),
                                ("r2_plain", 2, merge_insert_slots)):
         monkeypatch.setenv("MSBWT_TPU_RADIX", str(radix))
-        before = merge_insert.launches
-        idx, packed = build_msbwt_with_index(reads, lengths, sorted_insert, device=cuda,
-                                             merge=merge)
-        out[name] = (idx.bwt, packed.table, merge_insert.launches - before)
+        with monkeypatch.context() as m:
+            if name == "r2_plain":
+                m.setattr(bcr, "lf_stage", lambda *a, scratch=None: lf.lf_stage_plain(*a))
+                m.setattr(bcr, "lf_pair", lambda *a, scratch=None: lf.lf_pair_plain(*a))
+            before = (merge_insert.launches, lf.lf_stage.launches, lf.lf_pair.launches)
+            idx, packed = build_msbwt_with_index(reads, lengths, sorted_insert, device=cuda,
+                                                 merge=merge)
+        out[name] = (idx.bwt, packed.table, merge_insert.launches - before[0],
+                     lf.lf_stage.launches - before[1], lf.lf_pair.launches - before[2])
     L = reads.shape[1]
-    assert out["r1"][2] == 1 + L and out["r2"][2] == 1 + -(-L // 2)
-    assert out["r2_plain"][2] == 0
+    assert out["r1"][2:] == (1 + L, L, 0)
+    assert out["r2"][2:] == (1 + -(-L // 2), L % 2, L // 2)
+    assert out["r2_plain"][2:] == (0, 0, 0)
     for name in ("r1", "r2_plain"):
         assert torch.equal(out["r2"][0], out[name][0]) and torch.equal(out["r2"][1], out[name][1])
 
@@ -427,6 +439,7 @@ def test_stage_step2_on_card_matches_cpu(cuda):
     """One double-column step after stage 1 on ragged reads: every output on
     ``cuda`` equals the CPU's."""
     from rust_msbwt_tpu_torch.ops import bcr
+    from rust_msbwt_tpu_torch.ops.lf import lf_pair
 
     reads, lengths = _ragged(2000, 61)
     p = bcr._prepare_build(reads, lengths, True)
@@ -440,8 +453,7 @@ def test_stage_step2_on_card_matches_cpu(cuda):
         buf = torch.full((cap,), 7, dtype=torch.uint8, device=dev)
         _, table, _ = merge_insert(buf, q1, cols[1], active)
         counts = bcr._bump_counts(torch.zeros(6, dtype=torch.int32, device=dev), cols[1], active)
-        res = bcr._stage_step2(2, table, cap, N, cols, lens, q1,
-                               counts, cols[1])
+        res = lf_pair(2, table, cap, N, cols, lens, q1, counts, cols[1])
         outs.append([t.cpu() for t in res])
     assert all(torch.equal(a, b) for a, b in zip(*outs))
 
@@ -513,6 +525,93 @@ def lf_stage_args(case, dev):
     t = lambda k: torch.from_numpy(case[k]).to(dev)  # noqa: E731
     return (case["j"], packed_table_plain(t("buf")), case["nst"], t("cols"), t("lengths"),
             t("P"), t("counts"), t("prev_v"))
+
+
+# lf_pair cases: slots on tile edges, every slot of one tile, empty tiles
+# between two, ~10 slots a tile over 200 tiles, N = 1, no read active in
+# column j + 1 (m2 = 0), ragged reads; "huge_c" (CPU only: slots past 2^30 from the C array, each old
+# position clamped to cap, outside the kernel's tiles) and "past_2_30"
+# (card only: a buffer of 2^30 + 2^17 symbols) put the slots past 2^30
+LF_PAIR_KINDS = ["tile_edges", "one_tile", "empty_tiles", "sparse", "one", "no_second",
+                 "ragged"]
+
+
+def pair_tile():
+    """lf_pair's slot tile, as its kernel library reports it."""
+    from rust_msbwt_tpu_torch import _kernels
+
+    return _kernels.load().msbwt_lf_pair_tile()
+
+
+def lf_pair_case(kind, seed, N=None, *, tile):
+    """Inputs of one ``lf_pair`` column pair j, j + 1 (j = 4), from a seed
+    (also run on the CPU by tests/test_torch_radix.py against a numpy
+    oracle). The buffer is n symbols of A, so column j's slot of a read is
+    ``q1 = nst + P`` and each kind chooses its slots: distinct, as a build
+    gives them, so column j + 1's are distinct too. The stage view holds
+    '$' at column len + 1 and A..T before it; ``cap`` is the pass's
+    capacity (every slot of the pair below it, save "huge_c"); ``tile``
+    the kernel's slot tile (``pair_tile``), which the kinds place their
+    slots against."""
+    r = np.random.default_rng(seed)
+    j, L = 4, 7
+    T = tile
+    if kind == "tile_edges":
+        n = 5 * T
+        edges = np.array([k * T + d for k in range(1, 5) for d in (-2, -1, 0, 1)])
+        rest = r.choice(np.setdiff1d(np.arange(T // 2, n), edges), 500, replace=False)
+        q1 = np.concatenate([edges, rest])
+    elif kind == "one_tile":  # every slot of tile 2: the bitmap path, full
+        n, q1 = 4 * T, np.arange(2 * T, 3 * T)
+    elif kind == "empty_tiles":  # tiles 0 and 5 only
+        n = 6 * T + 77
+        q1 = np.concatenate([r.choice(np.arange(T // 2, T), 300, replace=False),
+                             r.choice(np.arange(5 * T, 6 * T), 300, replace=False)])
+    elif kind == "sparse":  # a warp a tile
+        n = 200 * T
+        q1 = r.choice(np.arange(T // 2, n), 2000, replace=False)
+    elif kind == "one":
+        n, q1 = 1000, np.array([777])
+    elif kind == "past_2_30":  # the top 2^17 positions
+        n = 2**30 + 2**17
+        q1 = n - r.choice(2**17, N or 100_000, replace=False)
+    else:  # no_second, ragged, huge_c
+        N = N or {"no_second": 500, "ragged": 3000, "huge_c": 400}[kind]
+        n = 13 * N
+        q1 = r.choice(np.arange(N + 2, n), N, replace=False)
+    N = q1.size
+    nst = 2**30 + 12_345 if kind == "huge_c" else N + 2
+    P = (q1 - nst if kind != "huge_c" else r.choice(n + 1, N, replace=False)).astype(np.int32)
+    if kind == "no_second":
+        lengths = np.full(N, j - 1)
+    elif kind == "ragged":
+        lengths = r.integers(j - 3, j + 3, N)
+    else:
+        lengths = np.full(N, L)
+    cols = r.integers(1, 6, (L + 2, N)).astype(np.uint8)
+    for c in range(L + 2):
+        cols[c, lengths + 1 == c] = 0
+        cols[c, lengths + 1 < c] = 0
+    r.shuffle(P)
+    cap = -(-(n + 2 * N + 1) // 128) * 128
+    if kind == "huge_c":
+        cap = -(-n // 128) * 128
+    return dict(n=n, cap=cap, j=j, nst=int(nst), cols=cols, lengths=lengths.astype(np.int32),
+                P=P, counts=np.array([0, n, 0, 0, 0, 0], np.int32),
+                prev_v=np.ones(N, np.uint8))
+
+
+def lf_pair_args(case, dev):
+    """``lf_pair``'s arguments for a case, on ``dev``: the table is the
+    packed table of the buffer padded to ``cap`` (through the merge pass
+    with no inserts: the kernel on the card)."""
+    t = lambda k: torch.from_numpy(case[k]).to(dev)  # noqa: E731
+    old = torch.full((case["cap"],), 7, dtype=torch.uint8, device=dev)
+    old[: case["n"]] = 1
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    _, table, _ = merge_insert(old, none, none.to(torch.uint8), none.bool())
+    return (case["j"], table, case["cap"], case["nst"], t("cols"), t("lengths"), t("P"),
+            t("counts"), t("prev_v"))
 
 
 LF_WALK_KINDS = ["many", "aligned"]
@@ -591,6 +690,75 @@ def test_lf_stage_kernel_matches_plain(cuda, kind):
     assert lf_stage.launches == before + 1
     assert [g.dtype for g in got] == [w.dtype for w in want]
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("kind", LF_PAIR_KINDS + ["past_2_30", "grid"])
+def test_lf_pair_kernel_matches_plain(cuda, kind):
+    """One column pair through the kernels and through ``lf_pair_plain`` on
+    the same CUDA tensors: every output equal, one call. The cases put
+    slots on 16K tile edges, fill one tile (the bitmap path), leave tiles
+    empty between two, spread ~10 a tile (a warp a tile), take N = 1 and
+    m2 = 0; ``past_2_30``: slots past 2^30 in a buffer of 2^30 + 2^17
+    symbols (65,544 tiles: the rank kernels' grid-stride loop); ``grid``:
+    N = 1.1M ragged reads, past the per-read kernels' grid cap."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_pair, lf_pair_plain
+
+    case = (lf_pair_case("ragged", 99, N=1_100_003, tile=pair_tile()) if kind == "grid"
+            else lf_pair_case(kind, len(kind), tile=pair_tile()))
+    args = lf_pair_args(case, cuda)
+    before = lf_pair.launches
+    got = lf_pair(*args)
+    want = lf_pair_plain(*args)
+    torch.cuda.synchronize()
+    assert lf_pair.launches == before + 1
+    assert [g.dtype for g in got] == [w.dtype for w in want]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if kind == "past_2_30":
+        assert int(got[0].min()) > 2**30
+    if kind == "no_second":
+        assert not got[2][case["P"].size:].any()
+
+
+def test_lf_pair_repeats_keep_counts(cuda):
+    """lf_pair many times in a row on reused inputs, with one scratch for
+    every call and lf_stage calls between (the stage loop's way): every
+    output == the plain twin's each time; the scratch ends zeroed."""
+    from rust_msbwt_tpu_torch.ops.lf import (lf_pair, lf_pair_plain, lf_stage, lf_stage_plain,
+                                             stage_scratch)
+
+    pairs = [lf_pair_args(lf_pair_case(kind, 7, tile=pair_tile()), cuda)
+             for kind in ("ragged", "one", "no_second", "tile_edges")]
+    stage = lf_stage_args(lf_stage_case("ragged", 7), cuda)
+    want, want_stage = [lf_pair_plain(*a) for a in pairs], lf_stage_plain(*stage)
+    scratch = stage_scratch(cuda)
+    for k in range(24):
+        got = lf_pair(*pairs[k % len(pairs)], scratch=scratch)
+        assert all(torch.equal(g, w) for g, w in zip(got, want[k % len(pairs)])), k
+        got = lf_stage(*stage, scratch=scratch)
+        assert all(torch.equal(g, w) for g, w in zip(got, want_stage)), k
+    torch.cuda.synchronize()
+    assert not scratch.any()
+
+
+def test_lf_pair_rejects_bad_input(cuda):
+    """lf_pair refuses what its kernels do not take, before any launch."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_pair
+
+    j, tab, cap, nst, cols, lengths, P, counts, prev_v = lf_pair_args(
+        lf_pair_case("ragged", 5, tile=pair_tile()), cuda)
+    before = lf_pair.launches
+    with pytest.raises(TypeError):
+        lf_pair(j, tab, cap, nst, cols, lengths, P.long(), counts, prev_v)
+    with pytest.raises(ValueError):  # column j + 1 outside the stage view
+        lf_pair(cols.shape[0] - 1, tab, cap, nst, cols, lengths, P, counts, prev_v)
+    with pytest.raises(ValueError):  # a capacity past the table
+        lf_pair(j, tab, 128 * tab.shape[0], nst, cols, lengths, P, counts, prev_v)
+    with pytest.raises(ValueError):
+        lf_pair(j, tab, cap, nst, cols, lengths, P.cpu(), counts, prev_v)
+    with pytest.raises(TypeError):
+        lf_pair(j, tab, cap, nst, cols, lengths, P, counts, prev_v,
+                scratch=torch.zeros(8, dtype=torch.int64, device=cuda))
+    assert lf_pair.launches == before
 
 
 @pytest.mark.parametrize("walk", ["cyclic", "lengths", "extract", "extract_short", "locate"])
@@ -712,33 +880,39 @@ def test_lf_stage_repeats_keep_counts(cuda):
 STREAM_READS, STREAM_REPS, STREAM_GATE = 100_003, 256, 2_000_000_000
 
 
-def _two_stream_launches(cuda, threaded, own_scratch):
-    """``STREAM_REPS`` ``lf_stage`` launches on each of two streams, each
-    stream on its own inputs (two seeds), alternating with no sync between
-    launches; each stream first runs a spin kernel, so the launches queue
-    up behind it and the two queues drain on the card together. From one
-    thread, or from two, each under its own ``torch.cuda.stream``. Returns
-    each stream's inputs and outputs, and whether every launch was queued
-    before the spins ended."""
+def _two_stream_launches(cuda, threaded, own_scratch, wrapper="lf_stage"):
+    """``STREAM_REPS`` calls of ``wrapper`` (``lf_stage``, or ``lf_pair``:
+    nine device events a call) on each of two streams, each stream on its
+    own inputs (two seeds), alternating with no sync between launches; each
+    stream first runs a spin kernel, so the launches queue up behind it and
+    the two queues drain on the card together. From one thread, or from
+    two, each under its own ``torch.cuda.stream``. Returns each stream's
+    inputs and outputs, and whether every launch was queued before the
+    spins ended."""
     import threading
 
-    from rust_msbwt_tpu_torch.ops.lf import lf_stage
+    from rust_msbwt_tpu_torch.ops import lf
 
+    fn = getattr(lf, wrapper)
     streams = [torch.cuda.Stream(cuda) for _ in range(2)]
-    cases = [lf_stage_args(lf_stage_case("ragged", seed, N=STREAM_READS), cuda)
-             for seed in (301, 302)]
+    if wrapper == "lf_pair":
+        cases = [lf_pair_args(lf_pair_case("ragged", seed, N=STREAM_READS, tile=pair_tile()),
+                              cuda) for seed in (301, 302)]
+    else:
+        cases = [lf_stage_args(lf_stage_case("ragged", seed, N=STREAM_READS), cuda)
+                 for seed in (301, 302)]
     torch.cuda.synchronize()
     outs, scratch = [[], []], [None, None]
 
     def launch(k):
         kw = {"scratch": scratch[k]} if own_scratch else {}
-        outs[k].append(lf_stage(*cases[k], **kw))
+        outs[k].append(fn(*cases[k], **kw))
 
-    lf_stage(*cases[0])  # the library built and its kernel loaded before the spins
+    fn(*cases[0])  # the library built and its kernels loaded before the spins
     torch.cuda.synchronize()
     for k, s in enumerate(streams):
         with torch.cuda.stream(s):
-            scratch[k] = torch.zeros(8, dtype=torch.int32, device=cuda)  # lf_stage's
+            scratch[k] = torch.zeros(8, dtype=torch.int32, device=cuda)  # lf_stage's, lf_pair's
             torch.cuda._sleep(STREAM_GATE)
     gate = torch.cuda.Event()
     gate.record(streams[1])
@@ -787,6 +961,28 @@ def test_lf_stage_two_streams_match_plain(cuda, threaded, own_scratch):
     assert not bad, (f"{len(bad)} of {2 * STREAM_REPS} launches differ from the twin "
                      f"({sum(not c for *_, c in bad)} in counts_out; all queued behind "
                      f"the spin: {held}); first {bad[:5]}")
+
+
+@pytest.mark.parametrize("own_scratch", [False, True], ids=["call_scratch", "stream_scratch"])
+@pytest.mark.parametrize("threaded", [False, True], ids=["one_thread", "two_threads"])
+def test_lf_pair_two_streams_match_plain(cuda, threaded, own_scratch):
+    """lf_pair on two streams of one card at once, as
+    ``test_lf_stage_two_streams_match_plain``: every call's outputs, counts
+    above all, == lf_pair_plain on that stream's inputs, with a scratch a
+    call or one a stream. Failures are counted over all calls."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_pair_plain
+
+    cases, outs, held = _two_stream_launches(cuda, threaded, own_scratch, "lf_pair")
+    bad = []
+    for k, args in enumerate(cases):
+        want = lf_pair_plain(*args)
+        assert len(outs[k]) == STREAM_REPS
+        for rep, got in enumerate(outs[k]):
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                bad.append((k, rep, torch.equal(got[4], want[4])))
+    assert not bad, (f"{len(bad)} of {2 * STREAM_REPS} calls differ from the twin "
+                     f"({sum(not c for *_, c in bad)} in counts; all queued behind the "
+                     f"spin: {held}); first {bad[:5]}")
 
 
 def test_kernels_on_second_card_match_first(cuda):
@@ -859,17 +1055,19 @@ def test_lf_kernels_reject_bad_input(cuda):
 
 @pytest.mark.parametrize("radix", [1, 2])
 def test_build_counts_lf_stage_launches(cuda, monkeypatch, radix):
-    """A build on the card takes one lf_stage launch a column after stage
-    1 (L in all at radix 1, one a pass at radix 2) and none of the walks;
-    its BWT and table equal the CPU's plain path."""
-    from rust_msbwt_tpu_torch.ops.lf import lf_stage, lf_walk_launches
+    """A build on the card takes one LF-step call a pass after stage 1: L
+    lf_stage launches at radix 1; at radix 2 one lf_pair call a column pair
+    and an lf_stage launch for an odd last column; none of the walks; its
+    BWT and table equal the CPU's plain path."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_pair, lf_stage, lf_walk_launches
 
     monkeypatch.setenv("MSBWT_TPU_RADIX", str(radix))
     reads, lengths = _ragged(1500, 71)
     L = reads.shape[1]
-    before, walks = lf_stage.launches, lf_walk_launches()
+    before, pairs, walks = lf_stage.launches, lf_pair.launches, lf_walk_launches()
     idx, packed = build_msbwt_with_index(reads, lengths, device=cuda)
-    assert lf_stage.launches - before == (L if radix == 1 else -(-L // 2))
+    assert lf_stage.launches - before == (L if radix == 1 else L % 2)
+    assert lf_pair.launches - pairs == (0 if radix == 1 else L // 2)
     assert lf_walk_launches() == walks
     idx_c, packed_c = build_msbwt_with_index(reads, lengths, device="cpu")
     assert torch.equal(idx.bwt.cpu(), idx_c.bwt) and torch.equal(packed.table.cpu(), packed_c.table)

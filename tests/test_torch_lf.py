@@ -127,17 +127,21 @@ def test_lf_stage_edges_match_oracle_and_jax(kind):
 @pytest.mark.parametrize("radix", [1, 2])
 def test_build_passes_one_scratch_to_every_column(radix, monkeypatch):
     """The stage loop's wiring of lf_stage's scratch: one build passes one
-    zeroed int32 [8] scratch to every column (L calls at radix 1, one a
-    column pair at ``MSBWT_TPU_RADIX=2``), a second build its own; both
+    zeroed int32 [8] scratch to every column (L ``lf_stage`` calls at radix
+    1; at ``MSBWT_TPU_RADIX=2`` one ``lf_pair`` call a column pair and an
+    ``lf_stage`` call for an odd last column), a second build its own; both
     BWTs equal the JAX package's build of the same reads."""
     monkeypatch.setenv("MSBWT_TPU_RADIX", str(radix))
-    real, seen = bcr.lf_stage, []
+    seen = []
 
-    def recording(*args, **kw):
-        seen.append(kw["scratch"])
-        return real(*args, **kw)
+    def recording(real):
+        def call(*args, **kw):
+            seen.append(kw["scratch"])
+            return real(*args, **kw)
+        return call
 
-    monkeypatch.setattr(bcr, "lf_stage", recording)
+    for name in ("lf_stage", "lf_pair"):
+        monkeypatch.setattr(bcr, name, recording(getattr(bcr, name)))
     r = np.random.default_rng(21 + radix)
     scratches = []
     for _ in range(2):

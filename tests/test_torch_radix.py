@@ -5,10 +5,13 @@ Forced ``MSBWT_TPU_RADIX=2`` builds of the port against the JAX package's
 XLA builds and the port's own radix-1 builds (sorted, ``--unsorted``, ragged
 reads with odd tails, duplicates, odd and even L, L = 1 and 2, an extend, a
 bucketed build, a streamed build), a few against the JAX package's radix-2
-Pallas build in interpret mode, one double-column step against
-``_pallas_stage_step2``, the slot math above 2^30 against a numpy oracle,
-``build_radix`` and the radix-2 bucket schedule. Every comparison is
-bit-exact (tolerance 0: every output is an integer).
+Pallas build in interpret mode, double-column steps (``lf_pair_plain`` and
+the stage loop's ``lf_pair``) against ``_pallas_stage_step2`` on uniform, ragged and
+short reads (a pair with no read active in its second column), sorted and
+unsorted; ``lf_pair_plain`` on the edge cases of ``tests/test_torch_gpu.py``
+and the slot math above 2^30 against numpy argsort oracles;
+``build_radix`` against the JAX package's and the radix-2 bucket schedule.
+Every comparison is bit-exact (tolerance 0: every output is an integer).
 """
 
 import functools
@@ -24,11 +27,12 @@ from rust_msbwt_tpu.ops import bcr as jbcr
 from rust_msbwt_tpu.ops import pallas_merge as jpm
 from rust_msbwt_tpu.utils.oracle import naive_bwt
 
-from rust_msbwt_tpu_torch.ops import bcr
+from rust_msbwt_tpu_torch.ops import bcr, lf
 from rust_msbwt_tpu_torch.ops.alphabet import convert_itos
 from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert_slots
 from rust_msbwt_tpu_torch.ops.rank import PAD
 from rust_msbwt_tpu_torch.utils.streaming import StreamingBuilder
+from test_torch_gpu import LF_PAIR_KINDS, lf_pair_args, lf_pair_case
 
 
 def _reads(kind, seed):
@@ -100,44 +104,118 @@ def test_radix2_matches_jax_pallas_interpret(sorted_insert, monkeypatch):
     assert np.array_equal(tab, np.asarray(jpacked.table))
 
 
-def test_stage_step2_matches_jax_step(monkeypatch):
-    """Two double-column steps (columns 2-3, then 4-5) from the same stage-1
-    carry: merged symbols, P, counts and prev_v equal the JAX package's
-    ``_pallas_stage_step2`` (Pallas interpret mode) after each."""
-    r = np.random.default_rng(3)
-    reads_l = [r.integers(1, 6, r.integers(1, 7)).astype(np.uint8) for _ in range(40)]
-    p = bcr._prepare_build(*bcr.encode_reads(reads_l), True)
+def _step_reads(kind):
+    """40 reads for the step test, as ``(reads, lengths)`` with a stage view
+    of 8 rows: uniform (6 bp), ragged (1-6 bp) or short (2-3 bp: the pair
+    (4, 5) has no read active in column 5, the pair (6, 7) none at all)."""
+    r = np.random.default_rng(len(kind))
+    lens = {"uniform": np.full(40, 6), "ragged": r.integers(1, 7, 40),
+            "short": r.integers(2, 4, 40)}[kind]
+    lens[0] = {"short": 3}.get(kind, 6)
+    return bcr.encode_reads([r.integers(1, 6, k).astype(np.uint8) for k in lens])
+
+
+@pytest.mark.parametrize("sorted_insert", [True, False])
+@pytest.mark.parametrize("kind", ["uniform", "ragged", "short"])
+def test_stage_step2_matches_jax_step(kind, sorted_insert):
+    """Three double-column steps (columns 2-3, 4-5, 6-7) from the same
+    stage-1 carry: merged symbols, P, counts and prev_v after each equal the
+    JAX package's ``_pallas_stage_step2`` (Pallas interpret mode), through
+    ``lf_pair_plain`` and through ``lf_pair`` (the stage loop's call) alike."""
+    p = bcr._prepare_build(*_step_reads(kind), sorted_insert)
     N, n_cap = p["N"], p["n_cap"]
-    cols, lengths = torch.from_numpy(p["cols"]), torch.from_numpy(p["lengths"])
+    cols_np = np.zeros((8, N), np.uint8)
+    cols_np[: p["cols"].shape[0]] = p["cols"]
+    cols, lengths = torch.from_numpy(cols_np), torch.from_numpy(p["lengths"])
 
     # the JAX carry after stage 1, then its steps
-    jcols, jlen = jnp.asarray(p["cols"]), jnp.asarray(p["lengths"])
+    jcols, jlen = jnp.asarray(cols_np), jnp.asarray(p["lengths"])
     carry = jax.jit(functools.partial(jbcr._pallas_stage1, n0=0, n_cap=n_cap,
                                       interpret=True))(
         jnp.zeros(0, jnp.uint8), jnp.arange(N, dtype=jnp.int32), jcols, jlen,
         jnp.zeros(6, jnp.int32))
     step2 = jax.jit(lambda j, c: jbcr._pallas_stage_step2(j, c, jcols, jlen, N, True))
 
-    # the port's: stage 1 through the plain pass, then _stage_step2 + a pass
+    # the port's: stage 1 through the plain pass, then each step + a pass
     cap = -(-n_cap // 128) * 128
     active = lengths >= 0
     q1 = torch.arange(N, dtype=torch.int32)
     buf, table, _ = merge_insert_slots(torch.full((cap,), PAD, dtype=torch.uint8), q1,
                                        cols[1], active)
-    P, counts, prev_v = q1, bcr._bump_counts(torch.zeros(6, dtype=torch.int32),
-                                             cols[1], active), cols[1]
-
-    for j in (2, 4):
+    counts = bcr._bump_counts(torch.zeros(6, dtype=torch.int32), cols[1], active)
+    state = {fn: (buf, table, q1, counts, cols[1])
+             for fn in (lf.lf_pair_plain, lf.lf_pair)}
+    for j in (2, 4, 6):
         carry = step2(jnp.int32(j), carry)
-        q, v, act, P, counts, prev_v = bcr._stage_step2(j, table, cap, N, cols,
-                                                        lengths, P, counts, prev_v)
-        assert q.dtype == torch.int32 and v.dtype == torch.uint8 and q.shape == (2 * N,)
-        buf, table, _ = merge_insert_slots(buf, q, v, act)
         want = np.asarray(jpm.from_phys(carry[0], n_cap))
-        assert np.array_equal(buf[:n_cap].numpy().astype(np.int32), want), j
-        assert np.array_equal(P.numpy(), np.asarray(carry[2]))
-        assert np.array_equal(counts.numpy(), np.asarray(carry[3]))
-        assert np.array_equal(prev_v.numpy(), np.asarray(carry[4]))
+        for fn, (buf, table, P, counts, prev_v) in state.items():
+            q, v, act, P, counts, prev_v = fn(j, table, cap, N, cols, lengths, P, counts,
+                                              prev_v)
+            assert q.dtype == torch.int32 and v.dtype == torch.uint8 and q.shape == (2 * N,)
+            buf, table, _ = merge_insert_slots(buf, q, v, act)
+            assert np.array_equal(buf[:n_cap].numpy().astype(np.int32), want), (j, fn)
+            assert np.array_equal(P.numpy(), np.asarray(carry[2]))
+            assert np.array_equal(counts.numpy(), np.asarray(carry[3]))
+            assert np.array_equal(prev_v.numpy(), np.asarray(carry[4]))
+            state[fn] = (buf, table, P, counts, prev_v)
+        if kind == "short" and j == 4:
+            assert not act[N:].any() and act[:N].any()  # m2 = 0
+
+
+def _pair_oracle(case):
+    """``lf_pair``'s outputs for a case in numpy, its slot ranks by sorting:
+    q1 from the all-A buffer's rank, inv1 and inb (the active q1 below, and
+    those of the same symbol) by searchsorted over sorted slots, q2 at the
+    clamped old position, f1 over sort(q2) - k."""
+    j, cap, nst, cols = case["j"], case["cap"], case["nst"], case["cols"]
+    n, lengths, counts = case["n"], case["lengths"].astype(np.int64), case["counts"]
+    N = lengths.size
+
+    def rank(s, pos):  # the buffer is A (1) at [0, n), PAD after
+        return np.where(s == 1, np.minimum(pos, n), 0)
+
+    def cvec(c):
+        return np.array([0] + [nst + int(c[1:f].sum()) for f in range(1, 6)], np.int64)
+
+    act1, act2 = j <= lengths + 1, j + 1 <= lengths + 1
+    v1, v2 = cols[j].astype(np.int64), cols[j + 1].astype(np.int64)
+    f = case["prev_v"].astype(np.int64)
+    q1 = cvec(counts)[f] + rank(f, case["P"].astype(np.int64))
+    counts1 = counts + np.bincount(v1[act1], minlength=6)
+    inv1 = np.searchsorted(np.sort(q1[act1]), q1)
+    inb = np.array([np.searchsorted(np.sort(q1[act1 & (v1 == s)]), q) for s, q in zip(v1, q1)],
+                   dtype=np.int64).reshape(N)
+    q2 = cvec(counts1)[v1] + rank(v1, np.clip(q1 - inv1, 0, cap)) + inb
+    s = np.sort(q2[act2])
+    f1 = q1 + np.searchsorted(s - np.arange(s.size), q1, side="right")
+    return (np.concatenate([np.where(act1, f1, 0), np.where(act2, q2, 0)]),
+            np.concatenate([v1, v2]), np.concatenate([act1, act2]),
+            np.where(act2, q2, np.where(act1, f1, case["P"])),
+            counts1 + np.bincount(v2[act2], minlength=6),
+            np.where(act2, v2, np.where(act1, v1, f)))
+
+
+@pytest.mark.parametrize("kind", LF_PAIR_KINDS + ["huge_c"])
+def test_lf_pair_plain_matches_oracle(kind):
+    """``lf_pair_plain`` on the card tests' column-pair cases (slots on tile
+    edges, a full tile, empty tiles, N = 1, m2 = 0, ragged; "huge_c": slots
+    past 2^30) equals the numpy argsort oracle; the wrapper on CPU tensors
+    runs it and launches nothing."""
+    # the plain twin has no tiles: the cases at the kernel's 16K-slot tile
+    case = lf_pair_case(kind, len(kind), tile=1 << 14)
+    args = lf_pair_args(case, "cpu")
+    before = lf.lf_pair.launches
+    got = lf.lf_pair(*args, scratch=lf.stage_scratch("cpu"))
+    assert lf.lf_pair.launches == before
+    plain = lf.lf_pair_plain(*args)
+    want = _pair_oracle(case)
+    for g, p, w in zip(got, plain, want):
+        assert torch.equal(g, p)
+        assert np.array_equal(g.numpy().astype(np.int64), np.asarray(w, np.int64))
+    if kind == "huge_c":
+        assert int(got[0].max()) > 2**30
+    if kind == "no_second":
+        assert not got[2][case["P"].size:].any()
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -158,9 +236,9 @@ def test_pair_slots_above_2_30_match_oracle(seed):
     C = 2**31 - 2**24 + np.arange(6, dtype=np.int64) * 2**21
 
     t = torch.from_numpy
-    order1, inv1, old_pos = bcr.pair_order(t(q1), t(active1), cap)
+    order1, inv1, old_pos = lf.pair_order(t(q1), t(active1), cap)
     base2 = t(C.astype(np.int32))[t(v1).long()] + ((old_pos - lo) // 8)
-    f1, q2 = bcr.pair_slots(t(q1), t(v1), t(active1), t(active2), order1, inv1, base2)
+    f1, q2 = lf.pair_slots(t(q1), t(v1), t(active1), t(active2), order1, inv1, base2)
 
     q1l = q1.astype(np.int64)
     act = np.flatnonzero(active1)
@@ -180,21 +258,31 @@ def test_pair_slots_above_2_30_match_oracle(seed):
         assert int(f1[i]) == f, i
 
 
-def test_build_radix(monkeypatch):
-    monkeypatch.delenv("MSBWT_TPU_RADIX", raising=False)
-    # the H100 sweep found no length where radix 2 pays: unforced, the port
-    # stays at 1 where the JAX package picks 2 from 999 bp on
-    assert bcr.build_radix() == 1 < jbcr.build_radix(500_500_000, 500_000)
-    assert jbcr.build_radix(1000 * 1000, 1000) == 2  # 999 bp
-    # the env values act as in the JAX package, at every shape
-    for v, want in (("1", 1), ("2", 2), ("auto", 1), ("3", 1)):
-        monkeypatch.setenv("MSBWT_TPU_RADIX", v)
-        assert bcr.build_radix() == want
-        assert jbcr.build_radix(505_000_000, 5_000_000) == want
-    monkeypatch.setenv("MSBWT_TPU_RADIX", "1")
-    assert bcr.build_radix() == 1 == jbcr.build_radix(1001 * 1000, 1000)
-    monkeypatch.setenv("MSBWT_TPU_RADIX", "2")
-    assert bcr.build_radix() == 2 == jbcr.build_radix(0, 0)
+# the JAX doctest's five shapes (100 bp, 500 bp, 1,000 bp, an extend of 100
+# bp reads onto a 505M base, an unknown shape) and the rule's edge (999 bp
+# gives 2, 998 bp gives 1), each with the radix the rule picks
+RADIX_SHAPES = [((505_000_000, 5_000_000, 0), 1), ((500_500_000, 1_000_000, 0), 1),
+                ((500_500_000, 500_000, 0), 2), ((505_101_000, 1_000, 505_000_000), 1),
+                ((None, None, 0), 1), ((1000 * 1000, 1000, 0), 2),
+                ((999 * 1000, 1000, 0), 1)]
+
+
+@pytest.mark.parametrize("env", [None, "1", "2", "auto", "3"])
+@pytest.mark.parametrize("shape,rule", RADIX_SHAPES,
+                         ids=["100bp", "500bp", "1000bp", "extend", "unknown", "999bp",
+                              "998bp"])
+def test_build_radix(shape, rule, env, monkeypatch):
+    """The port's radix choice == the JAX package's: unforced (and under any
+    value but 1 and 2) the JAX rule, mean length + 1 of the new batch from
+    1,000 on; ``MSBWT_TPU_RADIX=1|2`` forces either at every shape."""
+    if env is None:
+        monkeypatch.delenv("MSBWT_TPU_RADIX", raising=False)
+    else:
+        monkeypatch.setenv("MSBWT_TPU_RADIX", env)
+    want = {"1": 1, "2": 2}.get(env, rule)
+    n_cap, n_reads, n_base = shape
+    assert bcr.build_radix(n_cap, n_reads, n_base) == want
+    assert jbcr.build_radix(n_cap, n_reads, n_base) == want
 
 
 def test_bucket_growth_env(monkeypatch):
