@@ -32,8 +32,11 @@ Phases:
   3b. the LF-step kernels against their plain twins on the card, exact:
      ``lf_stage`` at the edge shapes of ``tests/test_torch_gpu.py`` (N = 1,
      every read inactive, P == n with n % 128 == 0, the last bin, ragged,
-     N = 1.1M past the grid cap) and the four ``lf_walk`` walks on its two
-     walk cases; the query kernels against their twins, exact, at the query
+     N = 1.1M past the grid cap), ``lf_pair`` at its column-pair cases
+     (slots on tile edges, full and empty tiles, tiles at their bucket's
+     edges, clustered and many overfull tiles, N = 1, m2 = 0, ragged, 1.1M
+     reads) and the four ``lf_walk`` walks on its two walk cases; the query
+     kernels against their twins, exact, at the query
      edge shapes of ``tests/test_torch_gpu.py`` (B = 1, B = 0, every query
      absent, n % 128 == 0, ragged lengths, caches 6^8 / 6^9 / 6^11, 1.1M
      queries, warps mixing early stops, full queries and tails, batch sizes
@@ -132,7 +135,9 @@ Phases:
      last pass's at radix 2, and on those card tensors ``lf_stage`` == its
      twin (timed; its event time split from its kernel's device duration by
      the profiler), ``lf_pair`` == ``lf_pair_plain`` (timed against the
-     bytes the pair must move, its device time by kernel from the profiler)
+     bytes the pair must move, its device time by kernel from the profiler
+     and its share of the bound; with ``--parent`` the parent's, its event
+     and device time in turns)
      and the merge kernel == the plain pass; (b) 20,000 of them at radix 2
      through the plain pass and LF steps on the card == the kernels (500
      ``lf_pair`` calls); (c) the BWT of the first 400,000 loaded from RLE
@@ -471,9 +476,9 @@ def pair_bytes(torch, args) -> tuple:
 
 
 def pair_split(torch, label, fn, args, reps=20) -> dict:
-    """``fn`` (``lf_pair``) over ``reps`` calls under ``torch.profiler``:
-    its device milliseconds and device events a call, by kernel (launches
-    uncounted)."""
+    """``fn`` (``lf_pair``, this commit's or the parent's) over ``reps``
+    calls under ``torch.profiler``: its device milliseconds and device
+    events a call, by kernel (launches uncounted)."""
     import re
 
     from rust_msbwt_tpu_torch.utils.profiling import device_us, trace
@@ -500,9 +505,10 @@ def pair_split(torch, label, fn, args, reps=20) -> dict:
 def hold_pair(torch, name, args, reps=20, plain_reps=3):
     """``hold`` for one kept ``lf_pair`` column pair, called as the stage
     loop calls it (``loop_pair``), against ``lf_pair_plain``; its bound is
-    ``pair_bytes``; then its device time by kernel (``pair_split``) and,
-    with ``--parent``, the parent's radix-2 step (``load_parent_step2``)
-    == this commit's on the same card tensors, timed in turns."""
+    ``pair_bytes``; then its device time by kernel (``pair_split``), its
+    share of the bound, and, with ``--parent``, the parent's radix-2 step
+    (``load_parent_step2``) == this commit's on the same card tensors, its
+    event time and its device time by kernel in turns (``pair_turns``)."""
     from rust_msbwt_tpu_torch.ops import lf
 
     j, tab, cap, P = args[0], args[1], args[2], args[6]
@@ -514,11 +520,41 @@ def hold_pair(torch, name, args, reps=20, plain_reps=3):
                plain_reps=plain_reps)
     res["rows"] = rows
     res["split"] = pair_split(torch, label, pair, args)
-    if PARENT_STEP2 is not None:
-        import functools
+    res["device_share"] = res["bound_ms"] / res["split"]["device_ms"]
+    log(f"[lf] {label}: device time {res['split']['device_ms']:.4f} ms, "
+        f"{res['device_share']:.1%} of its {res['bound_ms']:.4f} ms bound; event time "
+        f"{res['ms']:.4f} ms, {res['bound_ms'] / res['ms']:.1%}")
+    res.update(pair_turns(torch, label, pair, args, reps))
+    return res
 
-        parent = functools.partial(PARENT_STEP2, scratch=lf.stage_scratch(tab.device))
-        res.update(parent_turns(torch, label, pair, parent, [args], reps, "lf"))
+
+def pair_turns(torch, label, pair, args, reps=20) -> dict:
+    """With ``--parent``: the parent's radix-2 step (``load_parent_step2``,
+    on a scratch of its own) == ``pair`` on ``args``, exactly, then both
+    timed in turns, parent, new, new, parent: the event time a call
+    (``parent_turns``) and the device time a call by kernel
+    (``pair_split``); ``{}`` without a parent."""
+    import functools
+
+    from rust_msbwt_tpu_torch.ops import lf
+
+    if PARENT_STEP2 is None:
+        return {}
+    parent = functools.partial(PARENT_STEP2, scratch=lf.stage_scratch(args[1].device))
+    res = parent_turns(torch, label, pair, parent, [args], reps, "lf")
+    split = {"parent": [], "new": []}
+    for who in ("parent", "new", "new", "parent"):
+        split[who].append(pair_split(torch, f"{label}, {who}",
+                                     parent if who == "parent" else pair, args, reps))
+    dev = {who: [x["device_ms"] for x in runs] for who, runs in split.items()}
+    res.update(parent_device_ms=dev["parent"], turn_device_ms=dev["new"],
+               parent_events=split["parent"][0]["events"],
+               parent_split=split["parent"][0]["kernels"])
+    log(f"[lf] {label}: device time in turns parent / new / new / parent "
+        f"{dev['parent'][0]:.4f} / {dev['new'][0]:.4f} / {dev['new'][1]:.4f} / "
+        f"{dev['parent'][1]:.4f} ms ({split['parent'][0]['events']:.1f} / "
+        f"{split['new'][0]['events']:.1f} device events a call) -> parent / new = "
+        f"{sum(dev['parent']) / sum(dev['new']):.3f}")
     return res
 
 
@@ -798,7 +834,8 @@ def load_parent_kernels(parent):
     """The parent commit's kernel library, built from ``parent``'s own
     sources into its own ``_build`` and loaded by its own
     ``_kernels.load()`` (which sets its C entry points' argument types);
-    the query and LF kernels' registers and spills of its build are logged.
+    the query, LF and column-pair kernels' registers and spills of its
+    build are logged.
     None when no parent checkout is given."""
     import importlib.util
     import re
@@ -811,8 +848,8 @@ def load_parent_kernels(parent):
     spec.loader.exec_module(mod)
     lines = mod.build().splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"(kmer_ranges_packed|kmer_counts_pair|lf_stage|lf_walk)_kernel(ILi(\d)E)?",
-                      line)
+        m = re.search(r"(kmer_ranges_packed|kmer_counts_pair|lf_stage|lf_walk|pair_\w+?)_kernel"
+                      r"(ILi(\d)E)?", line)
         if "Compiling entry" in line and m:
             name = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
             log(f"[parent] {name}: " + "; ".join(x.split(":")[-1].strip() if "Used" in x
@@ -1075,23 +1112,38 @@ def time_505m(torch, args, new_k, tab_k, merge_insert, merge_insert_slots):
 def phase_lf_edges(torch, dev):
     """Phase 3b: the LF-step kernels == their plain twins on the card at the
     edge shapes of tests/test_torch_gpu.py, exact (and, with ``--parent``,
-    == the parent's kernels)."""
+    == the parent's kernels): ``lf_stage``'s, the walks', and ``lf_pair``'s
+    column-pair kinds (tile edges, full and empty tiles, tiles at their
+    bucket's edges, clustered and many overfull tiles, m2 = 0, 1.1M
+    reads)."""
     from rust_msbwt_tpu_torch.ops import lf
 
     from test_torch_gpu import (  # tests/ (on sys.path)
+        LF_PAIR_KINDS,
         LF_STAGE_KINDS,
         LF_WALK_KINDS,
         _as_list,
+        lf_pair_args,
+        lf_pair_case,
         lf_stage_args,
         lf_stage_case,
         lf_walk_calls,
         lf_walk_case,
+        pair_bucket,
+        pair_tile,
     )
 
     cases = [(f"lf_stage {k}", lf.lf_stage, lf.lf_stage_plain,
               lf_stage_args(lf_stage_case(k, len(k)), dev)) for k in LF_STAGE_KINDS]
     cases.append(("lf_stage grid (N = 1,100,003)", lf.lf_stage, lf.lf_stage_plain,
                   lf_stage_args(lf_stage_case("ragged", 99, N=1_100_003), dev)))
+    tile, bucket = pair_tile(), pair_bucket()
+    cases += [(f"lf_pair {k}", lf.lf_pair, lf.lf_pair_plain,
+               lf_pair_args(lf_pair_case(k, len(k), tile=tile, bucket=bucket), dev))
+              for k in LF_PAIR_KINDS]
+    cases.append(("lf_pair grid (N = 1,100,003)", lf.lf_pair, lf.lf_pair_plain,
+                  lf_pair_args(lf_pair_case("ragged", 99, N=1_100_003, tile=tile,
+                                            bucket=bucket), dev)))
     for k in LF_WALK_KINDS:
         cases += [(f"lf_walk {w} ({k})", *call)
                   for w, call in lf_walk_calls(lf_walk_case(k, len(k)), dev).items()]
@@ -2407,6 +2459,12 @@ def main(argv=None) -> int:
         "rows": long_pair["rows"],
         "device_ms": long_pair["split"]["device_ms"],
         "device_events": long_pair["split"]["events"],
+        "device_kernels": long_pair["split"]["kernels"],
+        "bound_share_device": long_pair["device_share"],
+        "bound_share_event": long_pair["bound_ms"] / long_pair["ms"],
+        "parent_device_ms": long_pair.get("parent_device_ms"),
+        "turn_device_ms": long_pair.get("turn_device_ms"),
+        "parent_events": long_pair.get("parent_events"),
         "events_a_column": {f"radix{r}": e["events_a_column"]
                             for r, e in long_pair["events"].items()},
     }, {

@@ -3,7 +3,7 @@
 NVIDIA card.
 
     python3 profile_build.py [--reps 4] [--top 25] [--no-profile] [--sweep-only]
-                             [--queries]
+                             [--queries] [--parent DIR]
 
 Uses ``chip_smoke.py``'s main-path read set (5M x 100 bp reads from a
 random 4.6 Mbase genome, seed 0xEC011; 1M 21-mer queries). The CUDA context
@@ -56,8 +56,13 @@ timed. Then:
    flipped each round, and the median of the per-round ratios; then one
    profiled loop per radix (device time, idle share, device events a
    column), with radix 2's ``lf_pair`` kernels timed apart in the loop, and
-   ``lf_pair`` alone on the last column pair's inputs (device ms and device
-   events a call, by kernel).
+   ``lf_pair`` alone on the last column pair's inputs: its device ms and
+   device events a call by kernel (``chip_smoke.pair_split``) beside the
+   bytes its function must move there (``chip_smoke.pair_bytes``) at
+   3.35 TB/s, and the share of that bound. With ``--parent DIR`` (a ``git
+   archive`` of the parent commit), the parent's radix-2 step too, on the
+   same inputs: equal to this commit's ``lf_pair``, exactly, its event time
+   and device time by kernel in turns with it (``chip_smoke.pair_turns``).
 
 ``--queries`` runs one build and step 2's two query batches only (with
 ``--reps 1``, about a minute): the run PERF.md's query numbers come from,
@@ -338,7 +343,8 @@ def radix_sweep(torch, np, dev, top: int) -> list:
     last pair's inputs (device ms and events a call, by kernel)."""
     from statistics import median
 
-    from chip_smoke import genome_reads, loop_pair, pair_split, radix_env
+    from chip_smoke import genome_reads, loop_pair, pair_bytes, pair_split, pair_turns, radix_env
+    from rust_msbwt_tpu_torch.utils.profiling import DEFAULT_HBM_BW
     from rust_msbwt_tpu_torch.ops.bcr import _build_device, _prepare_build
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
 
@@ -363,8 +369,17 @@ def radix_sweep(torch, np, dev, top: int) -> list:
                     columns=L)
         args = last_pair(torch, dev, p, L)
         del p
-        row["pair_a_call"] = pair_split(torch, f"L={L}, columns {args[0]} and {args[0] + 1}",
-                                        loop_pair(dev), args)
+        label = f"L={L}, columns {args[0]} and {args[0] + 1}"
+        pair = loop_pair(dev)
+        split = row["pair_a_call"] = pair_split(torch, label, pair, args)
+        bound_bytes, rows_read = pair_bytes(torch, args)
+        bound_ms = bound_bytes / DEFAULT_HBM_BW * 1e3
+        row["pair_bound"] = {"bytes": bound_bytes, "rows": rows_read, "bound_ms": bound_ms,
+                             "share": bound_ms / split["device_ms"]}
+        log(f"[sweep] {label}: lf_pair device {split['device_ms']:.4f} ms in "
+            f"{split['events']:.1f} events against its {bound_ms:.4f} ms bound ({bound_bytes} B: "
+            f"{rows_read} distinct rows; {bound_ms / split['device_ms']:.1%} of it)")
+        row["pair_parent"] = pair_turns(torch, label, pair, args)
         del args
         log(f"[sweep] L={L} ({n_reads} reads, {row['symbols']} symbols): device loop radix 1 "
             + " / ".join(f"{t:.4f}" for t in loops[1]) + " s, radix 2 "
@@ -387,6 +402,9 @@ def main(argv=None) -> int:
                     help="run only step 4, the radix sweep")
     ap.add_argument("--queries", action="store_true",
                     help="run one build and step 2's query batches only")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit (git archive): step 4 holds its "
+                         "radix-2 step against lf_pair and times both in turns")
     args = ap.parse_args(argv)
     if args.reps < 1:
         ap.error("--reps must be at least 1")
@@ -399,6 +417,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
+    import chip_smoke
     from chip_smoke import N_READS, READ_LEN, card_line, ecoli_config
     from rust_msbwt_tpu_torch import _kernels
     from rust_msbwt_tpu_torch.ops.bcr import (
@@ -419,6 +438,10 @@ def main(argv=None) -> int:
     _kernels.build()
     _kernels.load()
     log(f"[setup] kernel library built and loaded in {time.perf_counter() - t0:.2f} s")
+    if args.parent:
+        parent_lib = chip_smoke.load_parent_kernels(args.parent)
+        chip_smoke.PARENT_STEP2 = chip_smoke.load_parent_step2(
+            args.parent, chip_smoke.load_parent_lf(args.parent, parent_lib))
     if args.sweep_only:
         print(json.dumps({"card": smi, "radix_sweep": radix_sweep(torch, np, dev, args.top)}))
         return 0

@@ -102,9 +102,11 @@ def load():
             build()
             lib = ctypes.CDLL(LIB_PATH)
             vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            for name in ("msbwt_merge_tile", "msbwt_lf_pair_tile"):
+            for name in ("msbwt_merge_tile", "msbwt_lf_pair_bucket"):
                 getattr(lib, name).restype = ctypes.c_int
                 getattr(lib, name).argtypes = []
+            lib.msbwt_lf_pair_tile.restype = ctypes.c_int
+            lib.msbwt_lf_pair_tile.argtypes = [i64, i64]
             lib.msbwt_merge_insert_scratch_len.restype = i64
             lib.msbwt_merge_insert_scratch_len.argtypes = [i64, i64]
             lib.msbwt_merge_insert.restype = ctypes.c_int

@@ -194,45 +194,136 @@ lf_stage_kernel(const int32_t* __restrict__ table, const uint8_t* __restrict__ v
 //
 // inv1, inb and inv2 are one primitive: the rank of a distinct slot below
 // 2^31 among a set of distinct slots, by symbol. It takes no sort and no
-// pass over an n-sized array: the slots are bucketed by 16K-position tile
-// (a count a tile and symbol, one atomic a read, whose old value is the
-// read's place in its bucket), the counts scanned once, each read placed,
-// and each tile ranks its own slots: a warp a tile of at most 128 slots
-// (the usual one: 16 a tile at 500k reads over 500M), every slot against
-// every other, or a block a larger tile, with a bitmap of the tile a
-// symbol in shared memory, word prefixes and popcounts. The work is
-// O(N + cap / 16K).
+// pass over an n-sized array: the slots are bucketed by slot tile, and each
+// tile ranks its own: a warp a tile of at most kWarpSlots slots, every slot
+// against every other, or a block a larger tile, with a bitmap of the tile a
+// symbol in shared memory, word prefixes and popcounts. The tile is the
+// largest power of two from 128 to 32K positions that holds at most
+// kPairDensity slots on average (pair_shift: 32K at 500k reads over 500M,
+// 128-1K in a build's first columns, where slots are dense), so a tile
+// outgrows the warp only where slots cluster. The work is O(N + cap / tile).
 //
-// Launches, all on the caller's stream (9 device events a pair):
-//   memset       the tile counts, the scans' chunk sums and tickets
-//   pair_first   column j as lf_stage (its counts through the caller's
-//                scratch into counts1), active2, each active q1 counted by
-//                tile and symbol
-//   pair_scan<6> the tile counts to exclusive prefixes by symbol, and each
-//                tile's start (chunks of 2,048 tiles, each adding the sums
-//                of the chunks before it)
-//   pair_place1  each active read into its tile's bucket
-//   pair_rank1   the q1 tiles, eight a block at a time: inv1, inb, the
-//                second rank, q2; each active q2 counted by tile
-//   pair_scan<1> the q2 tiles' starts; m2 the total
-//   pair_place2  each active2 read into its q2 tile's bucket
-//   pair_rank2   the q2 tiles: inv2, and bk[inv2] = q2 - inv2
-//   pair_final   f1 (a binary search of bk), the carry, column j + 1's
-//                counts through the scratch into counts_out
+// Bucketing without a placement pass: each slot's tile counter is bumped by
+// one returning atomic, and its old value is the slot's place in the
+// tile's bucket. The first kBucket places are the tile's own fixed bucket;
+// places past it go to chunks of a shared pool, [K 2^c, K 2^(c+1)) in chunk
+// c, listed in a directory of the tile that the slot at place K allocates
+// and the slot at place K 2^c extends (the others wait for its word: both
+// are running). The kernel that reads the tile counts scans them at its
+// start: its first blocks to start each scan a chunk of 512 tile rows (the
+// chunk publishes its sums and adds every earlier chunk's) and end, and the
+// others rank the tiles, each waiting for its group's chunks only after its
+// warps' compare loops (one thread a block polls, backing off).
+//
+// Launches, all on the caller's stream (5 device events a pair):
+//   memset      the tile rows, the scans' chunk sums, flags and counters
+//   pair_first  column j as lf_stage (its counts through the caller's
+//               scratch into counts1), active2; each active q1 into its
+//               tile's bucket, counted by tile and symbol
+//   pair_rank1  the q1 tile counts to prefixes by symbol; the q1 tiles,
+//               eight a block at a time: inv1, inb, the second rank at
+//               old_pos, q2; each active q2 into its tile's bucket
+//   pair_rank2  the q2 tile counts to prefixes (m2 the total); the q2
+//               tiles: inv2, and bk[inv2] = q2 - inv2
+//   pair_final  f1: the tile of column j's slot among the final buffer's
+//               (the q2 tile starts, a few L2 reads), then a binary search of
+//               that tile's bk entries; the carry, column j + 1's counts
+//               through the scratch into counts_out
 // A slot outside [0, cap] (a caller's error) is left out of every rank.
+// tools/pair_forms.py times the forms this one was chosen from (PERF.md):
+// loading both rows an old position can lie in before the compare loop, a
+// quad a slot, the scans at the counting kernels' end or as kernels of
+// their own, launch bounds.
 
-constexpr int kPairTileShift = 14;
-constexpr int kPairTile = 1 << kPairTileShift;  // slots a tile
-constexpr int kPairWords = kPairTile / 32;      // bitmap words a tile and symbol
-constexpr int kPairRow = 8;                     // round-1 tile row: 6 counts, start, pad
-constexpr int kTileGroup = kThreads / 32;       // tiles a rank block takes at once, a warp each
-constexpr int kWarpSlots = 128;                 // a warp ranks a tile of up to this many alone
-constexpr int kScanRows1 = 8, kScanRows2 = 32;  // tile rows a scan thread: round 1, round 2
-constexpr int kMaxScanBlocks = 128;             // scan chunks of the tiles of [0, 2^31)
-constexpr int kMaxRankBlocks = 2048;            // rank grid cap (grid-stride loop)
+constexpr int kPairMaxShift = 15;                 // largest slot tile: 32K positions
+constexpr int kPairMinShift = 7;                  // smallest: 128
+constexpr int kPairDensity = 64;                  // slots a tile at most, on average
+constexpr int kPairWords = (1 << kPairMaxShift) / 32;  // bitmap words a tile and symbol
+constexpr int kBucketShift = 7;
+constexpr int kBucket = 1 << kBucketShift;        // a tile's own bucket: places 0..127
+constexpr int kDirLen = kPairMaxShift - kBucketShift;  // chunks c = 0..7 cover places below 32K
+constexpr int kRow1 = 8;                          // q1 tile row: count, 6 symbol counts, chunk directory
+constexpr int kRow2 = 4;                          // q2 tile row: count, prefix, pad, chunk directory
+constexpr int kTileGroup = kThreads / 32;         // tiles a rank block takes at once, a warp each
+constexpr int kWarpSlots = 128;                   // a warp ranks a tile of up to this many alone
+constexpr int kMaxRankBlocks = 2048;              // rank grid cap (grid-stride loop)
+enum { kTicket1, kTicket2, kDirs1, kDirs2, kPool1, kPool2, kCounters = 8 };
 static_assert(kPairWords % kThreads == 0, "whole bitmap words a thread");
-static_assert(((1 << (31 - kPairTileShift)) + 2) <= kMaxScanBlocks * kThreads * kScanRows1,
-              "the round-1 scan covers every tile of a capacity below 2^31");
+static_assert(kWarpSlots <= kBucket, "a warp's tile is all in its own bucket");
+
+// A 32-bit word read with acquire, written with release, at GPU scope.
+__device__ __forceinline__ int ld_acquire(const int32_t* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int32_t* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// The slots of one column bucketed by tile: tile t's count at rows[t *
+// stride], the index + 1 of its chunk directory (0: none yet) at rows[t *
+// stride + stride - 1]; its own bucket prim[t * kBucket, +kBucket); chunk c
+// of a directory d at pool[dir[d * kDirLen + c] - 1, +kBucket << c).
+template <class E>
+struct Buckets {
+  int32_t* rows;
+  int stride;
+  E* prim;
+  E* pool;
+  int32_t* dir;
+  int32_t* n_dirs;  // directories handed out
+  int32_t* used;    // pool entries handed out
+};
+
+// Entry e at place loc >= kBucket of the tile whose row is `row`: in its
+// chunk, out of line (rare: a tile past kBucket slots).
+template <class E>
+__device__ __noinline__ void chunk_put(const Buckets<E> b, int32_t* row, int loc, E e) {
+  const int c = 31 - __clz(loc >> kBucketShift);
+  const int base = kBucket << c;  // chunk c: places [base, 2 base)
+  int32_t* dirp = row + b.stride - 1;
+  int d;
+  if (loc == kBucket) {  // the tile's first place past its bucket: its directory and chunk 0
+    d = atomicAdd(b.n_dirs, 1);
+    int32_t* dw = b.dir + (int64_t)d * kDirLen;
+    dw[0] = atomicAdd(b.used, kBucket) + 1;
+    for (int k = 1; k < kDirLen; ++k) dw[k] = 0;
+    st_release(dirp, d + 1);
+  } else {
+    while ((d = ld_acquire(dirp)) == 0) __nanosleep(32);
+    --d;
+  }
+  int32_t* cw = b.dir + (int64_t)d * kDirLen + c;
+  int off;
+  if (c > 0 && loc == base) {  // chunk c's first place: the chunk
+    off = atomicAdd(b.used, base);
+    st_release(cw, off + 1);
+  } else {
+    while ((off = ld_acquire(cw)) == 0) __nanosleep(32);
+    --off;
+  }
+  b.pool[off + (loc - base)] = e;
+}
+
+// Entry e into tile t's bucket, at the place its count's old value gives.
+template <class E>
+__device__ __forceinline__ void bucket_put(const Buckets<E>& b, int64_t t, E e) {
+  int32_t* row = b.rows + t * b.stride;
+  const int loc = atomicAdd(row, 1);
+  if (loc < kBucket) b.prim[t * kBucket + loc] = e;
+  else chunk_put(b, row, loc, e);
+}
+
+// Entry idx of tile t (after the kernel that bucketed them).
+template <class E>
+__device__ __forceinline__ E bucket_get(const Buckets<E>& b, int64_t t, int idx) {
+  if (idx < kBucket) return b.prim[t * kBucket + idx];
+  const int c = 31 - __clz(idx >> kBucketShift);
+  const int d = b.rows[t * b.stride + b.stride - 1] - 1;
+  return b.pool[b.dir[(int64_t)d * kDirLen + c] - 1 + (idx - (kBucket << c))];
+}
 
 struct PairArgs {
   const int32_t* table;
@@ -249,33 +340,161 @@ struct PairArgs {
   int32_t* counts1;        // [6] after column j (work)
   int32_t* counts_out;     // [6] after column j + 1
   int32_t* scratch;        // lf_stage's accumulators and ticket
-  int32_t* tiles1;         // [(T + 1) * kPairRow] q1 tiles by symbol
-  int32_t* tiles2;         // [T + 1] q2 tiles
-  int32_t* loc;            // [N] each read's place in its bucket
-  int2* bucket;            // [N] (read, slot in tile << 3 | symbol)
+  int32_t* rows1;          // [(T + 1) * kRow1] q1 tiles: count, by symbol (prefixes after the scan)
+  int32_t* rows2;          // [(T + 1) * kRow2] q2 tiles: count, prefix (after the scan)
+  unsigned long long* agg1;  // [chunks * kSyms] the q1 scan's chunk sums
+  unsigned long long* agg2;  // [chunks] the q2 scan's
+  int32_t* ctr;            // [kCounters] tickets and hand-out counters
+  int32_t* flags1;         // [chunks] a scan chunk's prefixes are written (1)
+  int32_t* flags2;
+  int2* prim1;             // q1 entries (read, slot in tile << 4 | active2 << 3 | symbol)
+  int2* pool1;
+  int32_t* dir1;
+  int32_t* prim2;          // q2 entries (the slot)
+  int32_t* pool2;
+  int32_t* dir2;
   int32_t* bk;             // [N] sort(q2) - k
   int64_t N;
   int64_t n_tiles;         // T: tiles of [0, cap]
   int cap;
   int j;
   int nst;
+  int shift;               // log2 of the tile
+  int chunks;              // chunks of each scan
 };
 
+__device__ __forceinline__ Buckets<int2> buckets1(const PairArgs& a) {
+  return {a.rows1, kRow1, a.prim1, a.pool1, a.dir1, a.ctr + kDirs1, a.ctr + kPool1};
+}
+
+__device__ __forceinline__ Buckets<int32_t> buckets2(const PairArgs& a) {
+  return {a.rows2, kRow2, a.prim2, a.pool2, a.dir2, a.ctr + kDirs2, a.ctr + kPool2};
+}
+
+__device__ __forceinline__ int64_t min64(int64_t x, int64_t y) { return x < y ? x : y; }
+
 // The tile of slot s, or -1 when s is outside the tiles.
-__device__ __forceinline__ int64_t pair_tile(int s, int64_t n_tiles) {
-  const int64_t t = s >> kPairTileShift;
+__device__ __forceinline__ int64_t pair_tile(int s, int shift, int64_t n_tiles) {
+  const int64_t t = s >> shift;
   return s >= 0 && t < n_tiles ? t : -1;
+}
+
+// Chunk b of `chunks` of rows 0..rows-1 (K counts at ints kIn.. of a row
+// of S ints, loaded and stored whole as 16 B pieces; the last row holds
+// zeros) to exclusive prefixes over all the rows, written at ints kOut..
+// (kOut == kIn: in place): a thread sums its rows' counts, one block scan a
+// count, the chunk publishes its sums (agg, a flagged 64-bit word a count,
+// zeroed before the launch) and adds every earlier chunk's. Every thread of
+// the block calls it.
+template <int K, int S, int kIn, int kOut>
+__device__ __forceinline__ void scan_chunk(int32_t* __restrict__ rows_arr, int64_t rows,
+                                           unsigned long long* __restrict__ agg, int b,
+                                           int chunks) {
+  static_assert(S % 4 == 0, "rows of whole 16 B pieces");
+  __shared__ int s_base[K];
+  if (threadIdx.x < K) s_base[threadIdx.x] = 0;
+  const int64_t chunk = (rows + chunks - 1) / chunks;
+  const int64_t per = (chunk + kThreads - 1) / kThreads;
+  const int64_t r0 = min64(b * chunk + threadIdx.x * per, rows);
+  const int64_t r1 = min64(r0 + per, min64((b + 1) * chunk, rows));
+  int4* row4 = reinterpret_cast<int4*>(rows_arr);
+  int x[K], total[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) x[s] = 0;
+  for (int64_t r = r0; r < r1; ++r) {
+    int v[S];
+#pragma unroll
+    for (int p = 0; p < S / 4; ++p) *reinterpret_cast<int4*>(v + 4 * p) = __ldcg(row4 + r * (S / 4) + p);
+#pragma unroll
+    for (int s = 0; s < K; ++s) x[s] += v[kIn + s];
+  }
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    block_exclusive_scan<kThreads, 1>(x + s, total + s);
+    __syncthreads();  // the scan's warp sums free again
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) store_state(agg + (int64_t)b * K + s, 1ull << 32, total[s]);
+  }
+  for (int k = threadIdx.x; k < b * K; k += kThreads) {
+    unsigned long long v;
+    for (int ns = 32; !((v = load_state(agg + k)) >> 32); ns = min(2 * ns, 1024)) __nanosleep(ns);
+    atomicAdd(&s_base[k % K], (int)(uint32_t)v);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < K; ++s) x[s] += s_base[s];
+  for (int64_t r = r0; r < r1; ++r) {
+    int v[S];
+#pragma unroll
+    for (int p = 0; p < S / 4; ++p) *reinterpret_cast<int4*>(v + 4 * p) = __ldcg(row4 + r * (S / 4) + p);
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const int c = v[kIn + s];
+      v[kOut + s] = x[s];
+      x[s] += c;
+    }
+#pragma unroll
+    for (int p = 0; p < S / 4; ++p) row4[r * (S / 4) + p] = *reinterpret_cast<int4*>(v + 4 * p);
+  }
+}
+
+// The chunks a scan of `rows` rows is cut into: two rows a thread, at most
+// `grid` (the blocks that take one).
+__host__ __device__ __forceinline__ int scan_chunks(int64_t rows, int64_t grid) {
+  const int64_t c = (rows + 2 * kThreads - 1) / (2 * kThreads);
+  return (int)(c < grid ? c : grid);
+}
+
+// At the start of a rank kernel, the scan of the tile rows its slots were
+// counted into (by the kernel before: every count is final). The grid has
+// `chunks` blocks more than its tile groups need; each block takes a
+// ticket, the first `chunks` to start scan a chunk each (scan_chunk), raise
+// its flag and end, and the others rank tiles as block ticket - chunks. So
+// a scanner waits only on scanners that started before it, and a block that
+// waits for a flag (wait_chunks) started after every scanner. Returns the
+// block's index among the ranking blocks, or -1 for a scanner. Every thread
+// of the block calls it.
+template <int K, int S, int kIn, int kOut>
+__device__ __forceinline__ int head_scan(int32_t* __restrict__ rows_arr, int64_t rows,
+                                         unsigned long long* __restrict__ agg, int32_t* flags,
+                                         int32_t* ticket, int chunks) {
+  __shared__ int s_ticket;
+  if (threadIdx.x == 0) s_ticket = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int b = s_ticket;
+  if (b >= chunks) return b - chunks;
+  scan_chunk<K, S, kIn, kOut>(rows_arr, rows, agg, b, chunks);
+  __syncthreads();
+  if (threadIdx.x == 0) {  // the chunk's prefixes before its flag
+    __threadfence();
+    st_release(flags + b, 1);
+  }
+  return -1;
+}
+
+// Wait until the chunks holding rows r0..r1 of a scan of `rows` rows in
+// `chunks` chunks are written (their rows are then read with __ldcg, past
+// L1). One thread a block waits, backing off from 64 ns to 2 us a poll:
+// the flags share a few L2 lines, and every resident block polls them.
+__device__ __forceinline__ void wait_chunks(const int32_t* flags, int64_t r0, int64_t r1,
+                                            int64_t rows, int chunks) {
+  const int64_t per = (rows + chunks - 1) / chunks;
+  for (int64_t c = r0 / per; c <= r1 / per; ++c)
+    for (int ns = 64; !ld_acquire(flags + c); ns = min(2 * ns, 2048)) __nanosleep(ns);
 }
 
 // Column j for every read, as lf_stage_kernel: q1 into q[0, N), active1
 // and active2, counts1 = counts + column j's active symbols (through the
-// scratch); q[N + i] = 0 where active1 is not (no later kernel writes it
-// there); each active q1 counted by tile and symbol, the count before the
-// read's add its place in the bucket.
-__global__ void __launch_bounds__(kThreads) pair_first_kernel(const PairArgs a) {
+// scratch); q[N + i] = 0 where active2 is not (pair_rank1 writes the
+// others); each active q1 into its tile's bucket, counted by symbol too.
+__device__ __forceinline__ void pair_first_body(const PairArgs& a) {
   __shared__ int s_c[kSyms];
   __shared__ int s_bump[kSyms];
   stage_setup(s_c, s_bump, a.counts, a.nst);
+  const Buckets<int2> b1 = buckets1(a);
+  const int mask = (1 << a.shift) - 1;
   int acc[kSyms] = {0, 0, 0, 0, 0, 0};
   for (int64_t base = (int64_t)blockIdx.x * kThreads; base < a.N;
        base += (int64_t)gridDim.x * kThreads) {
@@ -290,12 +509,14 @@ __global__ void __launch_bounds__(kThreads) pair_first_kernel(const PairArgs a) 
       a.q[i] = q1;
       a.active[i] = act1;
       a.active[a.N + i] = act2;
+      if (!act2) a.q[a.N + i] = 0;
       if (act1) {
         sym = vv;
-        const int64_t t = pair_tile(q1, a.n_tiles);
-        if (t >= 0 && vv < kSyms) a.loc[i] = atomicAdd(&a.tiles1[t * kPairRow + vv], 1);
-      } else {
-        a.q[a.N + i] = 0;
+        const int64_t t = pair_tile(q1, a.shift, a.n_tiles);
+        if (t >= 0 && vv < kSyms) {
+          atomicAdd(&a.rows1[t * kRow1 + 1 + vv], 1);
+          bucket_put(b1, t, make_int2((int)i, ((q1 & mask) << 4) | (act2 << 3) | vv));
+        }
       }
     }
 #pragma unroll
@@ -304,248 +525,248 @@ __global__ void __launch_bounds__(kThreads) pair_first_kernel(const PairArgs a) 
   add_stage_counts(acc, s_bump, a.counts, a.counts1, a.scratch);
 }
 
-// Rows 0..rows-1 of S ints, K counts each, to exclusive prefixes over the
-// rows in place; where S > K, int K of a row gets the sum of its K
-// prefixes (the row's start in a bucket array ordered by row, then by
-// column). The last row holds zeros and gets the totals. One pass: R rows
-// a thread, kThreads * R a block; a block takes a ticket (its chunk, in
-// launch order), publishes its chunk's sums (agg, a flagged 64-bit word a
-// count) and adds those of every chunk before it, each published by a
-// block that took its ticket earlier and publishes before it waits. agg
-// (u64 [kMaxScanBlocks * K]) and ticket are zeroed before the launch.
-template <int K, int S, int R>
-__global__ void __launch_bounds__(kThreads)
-pair_scan_kernel(int32_t* __restrict__ rows_arr, int64_t rows,
-                 unsigned long long* __restrict__ agg, unsigned* __restrict__ ticket) {
-  __shared__ int s_chunk;
-  __shared__ int s_base[K];
-  if (threadIdx.x == 0) s_chunk = (int)atomicAdd(ticket, 1u);
-  if (threadIdx.x < K) s_base[threadIdx.x] = 0;
-  __syncthreads();
-  const int b = s_chunk;
-  const int64_t r0 = ((int64_t)b * kThreads + threadIdx.x) * R;
-  int c[R][K], x[K], total[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) x[s] = 0;
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      c[k][s] = r0 + k < rows ? rows_arr[(r0 + k) * S + s] : 0;
-      x[s] += c[k][s];
-    }
-  }
-  block_exclusive_scan<kThreads, K>(x, total);
-#pragma unroll
-  for (int s = 0; s < K; ++s)
-    if (threadIdx.x == s) store_state(agg + (int64_t)b * K + s, 1ull << 32, total[s]);
-  for (int k = threadIdx.x; k < b * K; k += kThreads) {
-    unsigned long long v;
-    do {
-      v = load_state(agg + k);
-    } while (!(v >> 32));
-    atomicAdd(&s_base[k % K], (int)(uint32_t)v);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    if (r0 + k >= rows) break;
-    int start = 0;
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const int pre = s_base[s] + x[s];
-      rows_arr[(r0 + k) * S + s] = pre;
-      start += pre;
-      x[s] += c[k][s];
-    }
-    if (S > K) rows_arr[(r0 + k) * S + K] = start;
-  }
+__global__ void __launch_bounds__(kThreads) pair_first_kernel(const PairArgs a) {
+  pair_first_body(a);
 }
 
-// Each active read with a slot in the tiles into its q1 tile's bucket, at
-// the tile's start + its symbols before the read's + its place.
-__global__ void __launch_bounds__(kThreads) pair_place1_kernel(const PairArgs a) {
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < a.N;
-       i += (int64_t)gridDim.x * kThreads) {
-    if (!a.active[i]) continue;
-    const int q1 = a.q[i];
-    const int vv = a.v1[i];
-    const int64_t t = pair_tile(q1, a.n_tiles);
-    if (t < 0 || vv >= kSyms) continue;
-    const int32_t* row = a.tiles1 + t * kPairRow;
-    int pos = row[kSyms] + a.loc[i];
-    for (int s = 0; s < vv; ++s) pos += row[kPairRow + s] - row[s];
-    a.bucket[pos] = make_int2((int)i, ((q1 & (kPairTile - 1)) << 3) | vv);
-  }
-}
-
-// The ranks of every tile's slots among the tile's own: for each entry
-// (read, slot in tile << 3 | symbol) of bucket[start, start + c) of tile
-// t, where {start, c} = tile(t), emit(t, start, entry, all, same) once,
-// with `all` the tile's slots below the entry's and `same` those of them
-// with its symbol (kS == 1: every symbol is one). A block takes
-// kTileGroup tiles at a time, a warp each, in a grid-stride loop; a warp
-// ranks a tile of at most kWarpSlots slots alone, every slot against every
-// other. The block then ranks each larger tile of the group together: a
-// bitmap of the tile a symbol in shared memory, its word prefixes (one
-// block scan) and popcounts. Every thread of the block calls it.
-template <int kS, class Tile, class Emit>
-__device__ __forceinline__ void rank_tiles(const int2* __restrict__ bucket, int64_t n_tiles,
-                                           Tile tile, Emit emit) {
+// The ranks of one tile tb of cb > kWarpSlots slots among its own, by the
+// whole block (Pol as rank_tiles'): a bitmap of the tile a symbol in shared
+// memory, its word prefixes (one block scan) and popcounts; then
+// Pol::finish for each slot. Every thread of the block calls it; it leaves
+// its shared memory free.
+template <int kS, class Pol>
+__device__ __forceinline__ void rank_big_tile(const Pol& pol, int64_t tb, int cb) {
   __shared__ unsigned bits[kS][kPairWords];
-  __shared__ int pre[kS][kPairWords];
+  __shared__ uint16_t pre[kS][kPairWords];  // a tile holds fewer than 2^16 slots
+  constexpr int kPs = Pol::kPosShift;
+  constexpr int kPer = kPairWords / kThreads;  // words a thread
+  for (int i = threadIdx.x; i < kS * kPairWords; i += kThreads) (&bits[0][0])[i] = 0u;
+  __syncthreads();
+  for (int k = threadIdx.x; k < cb; k += kThreads) {
+    const int y = pol.key(pol.entry(tb, k));
+    const int slot = y >> kPs;
+    atomicOr(&bits[kS == 1 ? 0 : y & 7][slot >> 5], 1u << (slot & 31));
+  }
+  __syncthreads();
+  int x[kS], total[kS];
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    x[s] = 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) x[s] += __popc(bits[s][kPer * threadIdx.x + i]);
+  }
+  block_exclusive_scan<kThreads, kS>(x, total);
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      pre[s][kPer * threadIdx.x + i] = (uint16_t)x[s];
+      x[s] += __popc(bits[s][kPer * threadIdx.x + i]);
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < cb; k += kThreads) {
+    const typename Pol::Entry e = pol.entry(tb, k);
+    const int y = pol.key(e);
+    const int slot = y >> kPs, sym = kS == 1 ? 0 : y & 7, wd = slot >> 5;
+    const unsigned below = (1u << (slot & 31)) - 1u;
+    int all = 0, same = 0;
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      const int r = pre[s][wd] + __popc(bits[s][wd] & below);
+      all += r;
+      if (s == sym) same = r;
+    }
+    pol.finish(tb, e, all, same);
+  }
+  __syncthreads();  // bits, pre and the scan's warp sums free again
+}
+
+// The ranks of every tile's slots among the tile's own, for a policy Pol
+// over tiles 0..n_tiles-1: Pol::count(t) and Pol::entry(t, idx) give tile
+// t's slots; Pol::key(e) is an entry's compare key, its position key >>
+// Pol::kPosShift and (kS > 1) its symbol key & 7; Pol::wait(t0, t1) (one
+// thread) waits for tiles t0..t1's places (their scan chunks), and
+// Pol::finish(t, e, all, same) uses an entry's ranks: `all` the tile's
+// slots below the entry's and `same` those of them with its symbol (kS ==
+// 1: all). Block `block` of `blocks` takes kTileGroup tiles at a time, a
+// warp each, in a grid-stride loop; a warp ranks a tile of at most kWarpSlots slots alone,
+// every slot against every other, before the block waits for the group's
+// places; the block then ranks each larger tile of the group together
+// (rank_big_tile). Every thread of the block calls it.
+template <int kS, class Pol>
+__device__ __forceinline__ void rank_tiles(const Pol& pol, int64_t n_tiles, int block,
+                                           int blocks) {
+  constexpr int kE = kWarpSlots / 32;  // entries a lane
   __shared__ int s_key[kTileGroup][kWarpSlots];
   __shared__ int s_big[kTileGroup];
+  constexpr int kPs = Pol::kPosShift;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int64_t t0 = (int64_t)blockIdx.x * kTileGroup; t0 < n_tiles;
-       t0 += (int64_t)gridDim.x * kTileGroup) {
+  for (int64_t t0 = (int64_t)block * kTileGroup; t0 < n_tiles;
+       t0 += (int64_t)blocks * kTileGroup) {
     const int64_t t = t0 + warp;
-    const int2 sc = t < n_tiles ? tile(t) : make_int2(0, 0);
-    if (sc.y <= kWarpSlots) {
-      int2 e[kWarpSlots / 32];
+    const int c = t < n_tiles ? pol.count(t) : 0;
+    typename Pol::Entry e[kE];
+    int all[kE], same[kE];
+    if (c <= kWarpSlots) {
 #pragma unroll
-      for (int k = 0; k < kWarpSlots / 32; ++k) {
+      for (int k = 0; k < kE; ++k) {
         const int idx = lane + 32 * k;
-        if (idx < sc.y) {
-          e[k] = bucket[sc.x + idx];
-          s_key[warp][idx] = kS == 1 ? e[k].y >> 3 : e[k].y;
+        if (idx < c) {
+          e[k] = pol.entry(t, idx);
+          s_key[warp][idx] = pol.key(e[k]);
         }
       }
       __syncwarp();
 #pragma unroll
-      for (int k = 0; k < kWarpSlots / 32; ++k) {
-        const int idx = lane + 32 * k;
-        if (idx >= sc.y) break;
-        const int key = kS == 1 ? e[k].y >> 3 : e[k].y;
-        int all = 0, same = 0;
-        for (int m = 0; m < sc.y; ++m) {
+      for (int k = 0; k < kE; ++k) {
+        all[k] = same[k] = 0;
+        if (lane + 32 * k >= c) continue;
+        const int key = pol.key(e[k]);
+        for (int m = 0; m < c; ++m) {
           const int o = s_key[warp][m];
-          if (kS == 1) {
-            all += o < key;
-          } else {
-            const bool below = (o >> 3) < (key >> 3);
-            all += below;
-            same += below && (o & 7) == (key & 7);
-          }
+          const bool below = (o >> kPs) < (key >> kPs);
+          all[k] += below;
+          if (kS > 1) same[k] += below && (o & 7) == (key & 7);
         }
-        emit(t, sc.x, e[k], all, kS == 1 ? all : same);
       }
     }
-    if (lane == 0) s_big[warp] = sc.y > kWarpSlots;
+    if (lane == 0) s_big[warp] = c > kWarpSlots;
+    if (threadIdx.x == 0) pol.wait(t0, min64(t0 + kTileGroup, n_tiles) - 1);
     __syncthreads();
-    for (int w = 0; w < kTileGroup; ++w) {
-      if (!s_big[w]) continue;  // the same for every thread
-      const int64_t tb = t0 + w;
-      const int2 sb = tile(tb);
-      constexpr int kPer = kPairWords / kThreads;  // words a thread
-      for (int i = threadIdx.x; i < kS * kPairWords; i += kThreads) (&bits[0][0])[i] = 0u;
-      __syncthreads();
-      for (int k = threadIdx.x; k < sb.y; k += kThreads) {
-        const int y = bucket[sb.x + k].y;
-        const int slot = y >> 3;
-        atomicOr(&bits[kS == 1 ? 0 : y & 7][slot >> 5], 1u << (slot & 31));
-      }
-      __syncthreads();
-      int x[kS], total[kS];
+    if (c <= kWarpSlots) {
 #pragma unroll
-      for (int s = 0; s < kS; ++s) {
-        x[s] = 0;
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) x[s] += __popc(bits[s][kPer * threadIdx.x + i]);
-      }
-      block_exclusive_scan<kThreads, kS>(x, total);
-#pragma unroll
-      for (int s = 0; s < kS; ++s) {
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          pre[s][kPer * threadIdx.x + i] = x[s];
-          x[s] += __popc(bits[s][kPer * threadIdx.x + i]);
-        }
-      }
-      __syncthreads();
-      for (int k = threadIdx.x; k < sb.y; k += kThreads) {
-        const int2 e = bucket[sb.x + k];
-        const int slot = e.y >> 3, sym = kS == 1 ? 0 : e.y & 7, wd = slot >> 5;
-        const unsigned below = (1u << (slot & 31)) - 1u;
-        int all = 0, same = 0;
-#pragma unroll
-        for (int s = 0; s < kS; ++s) {
-          const int r = pre[s][wd] + __popc(bits[s][wd] & below);
-          all += r;
-          if (s == sym) same = r;
-        }
-        emit(tb, sb.x, e, all, same);
-      }
-      __syncthreads();  // bits, pre and the scan's warp sums free again
+      for (int k = 0; k < kE; ++k)
+        if (lane + 32 * k < c) pol.finish(t, e[k], all[k], kS == 1 ? all[k] : same[k]);
     }
+    for (int w = 0; w < kTileGroup; ++w)
+      if (s_big[w]) rank_big_tile<kS>(pol, t0 + w, pol.count(t0 + w));  // the same for every thread
     __syncthreads();  // s_key and s_big free again
   }
 }
 
+// pair_rank1's tiles, the q1 tiles: a tile's six symbol prefixes are the
+// active slots of each symbol below it, their sum its start, and a slot's
+// old position q1 - start - all; its second rank reads that row after the
+// tile's ranks (rank_at). kWait: the prefixes are scanned in the same
+// launch (head_scan), so wait for them.
+template <bool kWait>
+struct Rank1 {
+  using Entry = int2;
+  static constexpr int kPosShift = 4;
+  const PairArgs& a;
+  const Buckets<int2> b1;
+  const Buckets<int32_t> b2;
+  const int* s_c;  // the C array after column j, in shared memory
+
+  __device__ int count(int64_t t) const { return __ldcg(a.rows1 + t * kRow1); }
+  __device__ int2 entry(int64_t t, int idx) const { return bucket_get(b1, t, idx); }
+  __device__ int key(const int2& e) const { return e.y; }
+  __device__ void wait(int64_t t0, int64_t t1) const {
+    if (kWait) wait_chunks(a.flags1, t0, t1, a.n_tiles + 1, a.chunks);
+  }
+
+  // the tile's place: the active slots below it
+  __device__ int start(int64_t t) const {
+    const int4* row = reinterpret_cast<const int4*>(a.rows1 + t * kRow1);
+    const int4 r0 = __ldcg(row), r1 = __ldcg(row + 1);
+    return r0.y + r0.z + r0.w + r1.x + r1.y + r1.z;
+  }
+
+  // q2 = C1[v1] + rank(v1, old_pos) + inb into q[N + i] where active2, and
+  // q2 into its tile's bucket
+  __device__ void finish(int64_t t, int2 e, int all, int same) const {
+    const int vv = e.y & 7;
+    const int old_pos = min(max((int)(t << a.shift) + (e.y >> kPosShift) - start(t) - all, 0),
+                            a.cap);
+    const int q2 = s_c[vv] + rank_at(a.table, vv, old_pos) +
+                   __ldcg(a.rows1 + t * kRow1 + 1 + vv) + same;
+    if (e.y & 8) {  // active2
+      a.q[a.N + e.x] = q2;
+      const int64_t t2 = pair_tile(q2, a.shift, a.n_tiles);
+      if (t2 >= 0) bucket_put(b2, t2, q2);
+    }
+  }
+};
+
 // Each q1 tile: each active read's inv1 and inb, its second rank at
-// old_pos and q2 = C1[v1] + rank(v1, old_pos) + inb into q[N + i] (0 where
-// active2 is not); each active q2 counted by tile, the count before the
-// read's add its place in the bucket.
-__global__ void __launch_bounds__(kThreads) pair_rank1_kernel(const PairArgs a) {
+// old_pos, q2 into q[N + i] where active2 and into its tile's bucket. With
+// kHead, the q1 tile counts to prefixes by symbol first (head_scan; the
+// package's form: tools/pair_forms.py scans them elsewhere in its others).
+template <bool kHead>
+__device__ __forceinline__ void pair_rank1_body(const PairArgs& a) {
   __shared__ int s_c[kSyms];  // the C array after column j
   load_c(s_c, a.counts1, a.nst);
+  const int block = kHead ? head_scan<kSyms, kRow1, 1, 1>(a.rows1, a.n_tiles + 1, a.agg1,
+                                                          a.flags1, a.ctr + kTicket1, a.chunks)
+                          : (int)blockIdx.x;
+  if (block < 0) return;
   __syncthreads();
-  rank_tiles<kSyms>(
-      a.bucket, a.n_tiles,
-      [&](int64_t t) {
-        const int32_t* row = a.tiles1 + t * kPairRow;
-        return make_int2(row[kSyms], row[kPairRow + kSyms] - row[kSyms]);
-      },
-      [&](int64_t t, int start, int2 e, int all, int same) {
-        const int64_t i = e.x;
-        const int vv = e.y & 7;
-        const int q1 = (int)(t << kPairTileShift) + (e.y >> 3);
-        const int old_pos = min(max(q1 - (start + all), 0), a.cap);
-        const int q2 = s_c[vv] + rank_at(a.table, vv, old_pos) + a.tiles1[t * kPairRow + vv] +
-                       same;
-        if (a.active[a.N + i]) {
-          a.q[a.N + i] = q2;
-          const int64_t t2 = pair_tile(q2, a.n_tiles);
-          if (t2 >= 0) a.loc[i] = atomicAdd(&a.tiles2[t2], 1);
-        } else {
-          a.q[a.N + i] = 0;
-        }
-      });
+  const Rank1<kHead> pol{a, buckets1(a), buckets2(a), s_c};
+  rank_tiles<kSyms>(pol, a.n_tiles, block, gridDim.x - (kHead ? a.chunks : 0));
 }
 
-// Each active2 read with a slot in the tiles into its q2 tile's bucket.
-__global__ void __launch_bounds__(kThreads) pair_place2_kernel(const PairArgs a) {
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < a.N;
-       i += (int64_t)gridDim.x * kThreads) {
-    if (!a.active[a.N + i]) continue;
-    const int q2 = a.q[a.N + i];
-    const int64_t t = pair_tile(q2, a.n_tiles);
-    if (t < 0) continue;
-    a.bucket[a.tiles2[t] + a.loc[i]] = make_int2((int)i, (q2 & (kPairTile - 1)) << 3);
+// At most 64 registers (four blocks an SM): faster than no bound and than
+// 42 (tools/pair_forms.py).
+__global__ void __launch_bounds__(kThreads, 4) pair_rank1_kernel(const PairArgs a) {
+  pair_rank1_body<true>(a);
+}
+
+// pair_rank2's tiles, the q2 tiles: a tile's start is its row's prefix.
+template <bool kWait>
+struct Rank2 {
+  using Entry = int32_t;
+  static constexpr int kPosShift = 0;
+  const PairArgs& a;
+  const Buckets<int32_t> b2;
+  const int mask;
+
+  __device__ int count(int64_t t) const { return __ldcg(a.rows2 + t * kRow2); }
+  __device__ void wait(int64_t t0, int64_t t1) const {
+    if (kWait) wait_chunks(a.flags2, t0, t1, a.n_tiles + 1, a.chunks);
   }
+  __device__ int32_t entry(int64_t t, int idx) const { return bucket_get(b2, t, idx); }
+  __device__ int key(int32_t e) const { return e & mask; }
+  // inv2 = start + all, and bk[inv2] = q2 - inv2
+  __device__ void finish(int64_t t, int32_t q2, int all, int) const {
+    const int inv2 = __ldcg(a.rows2 + t * kRow2 + 1) + all;
+    a.bk[inv2] = q2 - inv2;
+  }
+};
+
+// Each q2 tile: each active2 read's inv2, and bk[inv2] = q2 - inv2. With
+// kHead, the q2 tile counts to prefixes first (head_scan; the last row's,
+// m2, the total).
+template <bool kHead>
+__device__ __forceinline__ void pair_rank2_body(const PairArgs& a) {
+  const int block = kHead ? head_scan<1, kRow2, 0, 1>(a.rows2, a.n_tiles + 1, a.agg2, a.flags2,
+                                                      a.ctr + kTicket2, a.chunks)
+                          : (int)blockIdx.x;
+  if (block < 0) return;
+  const Rank2<kHead> pol{a, buckets2(a), (1 << a.shift) - 1};
+  rank_tiles<1>(pol, a.n_tiles, block, gridDim.x - (kHead ? a.chunks : 0));
 }
 
-// Each q2 tile: each active2 read's inv2, and bk[inv2] = q2 - inv2.
 __global__ void __launch_bounds__(kThreads) pair_rank2_kernel(const PairArgs a) {
-  rank_tiles<1>(
-      a.bucket, a.n_tiles,
-      [&](int64_t t) { return make_int2(a.tiles2[t], a.tiles2[t + 1] - a.tiles2[t]); },
-      [&](int64_t t, int start, int2 e, int all, int) {
-        const int inv2 = start + all;
-        a.bk[inv2] = (int)(t << kPairTileShift) + (e.y >> 3) - inv2;
-      });
+  pair_rank2_body<true>(a);
 }
 
-// Every read: f1 = q1 + #{k < m2: bk[k] <= q1} (bk is non-decreasing over
-// its m2 entries) into q[i] (0 where active1 is not); P and prev_v moved to
-// column j + 1's slot and symbol where active2, else column j's where
-// active1; counts_out = counts1 + column j + 1's active symbols (through
-// the scratch).
+// Every read: f1 = q1 + #{k < m2: bk[k] <= q1} into q[i] (0 where active1
+// is not); P and prev_v moved to column j + 1's slot and symbol where
+// active2, else column j's where active1; counts_out = counts1 + column
+// j + 1's active symbols (through the scratch). f1 is the q1-th position of
+// the final buffer that no q2 takes: with S2[t] the q2 below tile t, the
+// free positions below tile t are F(t) = t T - S2[t], non-decreasing, so
+// f1 lies in the last tile t with F(t) <= q1, where every bk[k] of the
+// tiles before is <= q1 and none after; the search finds t from q1's own
+// tile by steps t -> (q1 + S2[t]) / T (each keeps F(t) <= q1) and single
+// steps, then searches bk over that tile's entries only.
 __global__ void __launch_bounds__(kThreads) pair_final_kernel(const PairArgs a) {
   __shared__ int s_bump[kSyms];
   if (threadIdx.x < kSyms) s_bump[threadIdx.x] = 0;
   __syncthreads();
-  const int m2 = a.tiles2[a.n_tiles];
+  const int32_t* s2 = a.rows2 + 1;  // S2[t] at s2[t * kRow2]
+  const int64_t nt = a.n_tiles;
   int acc[kSyms] = {0, 0, 0, 0, 0, 0};
   for (int64_t base = (int64_t)blockIdx.x * kThreads; base < a.N;
        base += (int64_t)gridDim.x * kThreads) {
@@ -556,10 +777,21 @@ __global__ void __launch_bounds__(kThreads) pair_final_kernel(const PairArgs a) 
       int f1 = 0;
       if (act1) {
         const int q1 = a.q[i];
-        int lo = 0, hi = m2;
+        int64_t t = q1 < 0 ? 0 : min64(q1 >> a.shift, nt - 1);
+        for (;;) {
+          const int64_t tn = min64(((int64_t)q1 + __ldg(s2 + t * kRow2)) >> a.shift, nt - 1);
+          if (tn > t) {
+            t = tn;
+          } else if (t + 1 < nt && ((t + 1) << a.shift) - __ldg(s2 + (t + 1) * kRow2) <= q1) {
+            ++t;
+          } else {
+            break;
+          }
+        }
+        int lo = __ldg(s2 + t * kRow2), hi = __ldg(s2 + (t + 1) * kRow2);
         while (lo < hi) {
           const int mid = (lo + hi) >> 1;
-          if (a.bk[mid] <= q1) lo = mid + 1;
+          if (__ldg(a.bk + mid) <= q1) lo = mid + 1;
           else hi = mid;
         }
         f1 = q1 + lo;
@@ -576,24 +808,119 @@ __global__ void __launch_bounds__(kThreads) pair_final_kernel(const PairArgs a) 
   add_stage_counts(acc, s_bump, a.counts1, a.counts_out, a.scratch);
 }
 
-// The work array of lf_pair, in int32 words: counts1; the two tile arrays
-// and the two scans' chunk sums and tickets (zeroed by the launcher); then
-// loc, the bucket and bk. Every part starts on an 8 B boundary.
+// log2 of lf_pair's slot tile for N reads and a capacity cap: the largest
+// power of two from 2^kPairMinShift to 2^kPairMaxShift with N T <=
+// kPairDensity (cap + 1).
+int pair_shift(int64_t N, int64_t cap) {
+  int s = kPairMaxShift;
+  while (s > kPairMinShift && (N << s) > (int64_t)kPairDensity * (cap + 1)) --s;
+  return s;
+}
+
+// The work array of lf_pair, in int32 words: counts1; the two tile row
+// arrays, the two scans' chunk sums, the counters and the scans' chunk
+// flags (zeroed by the launcher); then each column's buckets (the tiles' own, the pool of
+// chunks: fewer than 2N entries, since a tile's chunks hold fewer than
+// twice its places past kBucket; the directories: at most N / (kBucket +
+// 1), one a tile of more than kBucket slots), and bk. Every part starts on
+// an 8 B boundary.
 struct PairLayout {
-  int64_t counts1 = 0, tiles1 = 8, tiles2, agg1, agg2, tickets, loc, bucket, bk, total;
+  int64_t counts1 = 0, rows1 = 8, rows2, agg1, agg2, ctr, flags1, flags2, prim1, pool1, dir1,
+          prim2, pool2, dir2, bk, total;
   PairLayout(int64_t N, int64_t n_tiles) {
-    tiles2 = tiles1 + (n_tiles + 1) * kPairRow;
-    agg1 = tiles2 + ((n_tiles + 2) & ~int64_t(1));
-    agg2 = agg1 + 2 * kMaxScanBlocks * kSyms;  // u64 a chunk and count
-    tickets = agg2 + 2 * kMaxScanBlocks;
-    loc = tickets + 2;
-    bucket = loc + ((N + 1) & ~int64_t(1));
-    bk = bucket + 2 * N;
+    const int64_t dirs = ((N / (kBucket + 1) + 1) * kDirLen + 1) & ~int64_t(1);
+    const int64_t pool = 2 * N;
+    rows2 = rows1 + (n_tiles + 1) * kRow1;
+    agg1 = rows2 + (n_tiles + 1) * kRow2;
+    const int64_t chunks = scan_chunks(n_tiles + 1, INT64_MAX);  // the most either scan takes
+    agg2 = agg1 + 2 * chunks * kSyms;  // u64 a chunk and count
+    ctr = agg2 + 2 * chunks;
+    flags1 = ctr + kCounters;
+    flags2 = flags1 + ((chunks + 1) & ~int64_t(1));
+    prim1 = flags2 + ((chunks + 1) & ~int64_t(1));
+    pool1 = prim1 + 2 * n_tiles * kBucket;  // int2 entries
+    dir1 = pool1 + 2 * pool;
+    prim2 = dir1 + dirs;
+    pool2 = prim2 + ((n_tiles * kBucket + 1) & ~int64_t(1));
+    dir2 = pool2 + pool;
+    bk = dir2 + dirs;
     total = bk + N;
   }
 };
 
-int64_t pair_tiles_of(int64_t cap) { return (cap >> kPairTileShift) + 1; }
+int64_t pair_tiles_of(int64_t cap, int shift) { return (cap >> shift) + 1; }
+
+// The grids of lf_pair's kernels: per read (pair_first, pair_final) and per
+// group of kTileGroup tiles (the rank kernels, which add a block a scan
+// chunk); the scans' chunks.
+struct PairGrid {
+  unsigned reads, tiles;
+  PairGrid(PairArgs& a) {
+    int64_t blocks = (a.N + kThreads - 1) / kThreads;
+    if (blocks > kMaxStageBlocks) blocks = kMaxStageBlocks;
+    int64_t rank_blocks = (a.n_tiles + kTileGroup - 1) / kTileGroup;
+    if (rank_blocks > kMaxRankBlocks) rank_blocks = kMaxRankBlocks;
+    reads = (unsigned)blocks;
+    tiles = (unsigned)rank_blocks;
+    a.chunks = scan_chunks(a.n_tiles + 1, kMaxRankBlocks);
+  }
+};
+
+// lf_pair's five device events on st: the memset of the zeroed part of the
+// work (layout l) and the four kernels.
+void launch_pair(PairArgs& a, const PairLayout& l, cudaStream_t st) {
+  const PairGrid g(a);
+  cudaMemsetAsync(a.rows1, 0, (l.prim1 - l.rows1) * sizeof(int32_t), st);
+  pair_first_kernel<<<g.reads, kThreads, 0, st>>>(a);
+  pair_rank1_kernel<<<g.tiles + a.chunks, kThreads, 0, st>>>(a);
+  pair_rank2_kernel<<<g.tiles + a.chunks, kThreads, 0, st>>>(a);
+  pair_final_kernel<<<g.reads, kThreads, 0, st>>>(a);
+}
+
+// The PairArgs of one lf_pair call (the arguments of msbwt_lf_pair) over
+// its work array, laid out by l.
+PairArgs pair_args(const void* table, const void* v1, const void* v2, const void* lengths,
+                   const void* P, const void* prev_v, const void* counts, void* q, void* active,
+                   void* P_out, void* prev_out, void* counts_out, void* scratch, void* work,
+                   int64_t N, int64_t cap, int j, int nst, int shift, const PairLayout& l) {
+  int32_t* w = (int32_t*)work;
+  PairArgs a = {};
+  a.table = (const int32_t*)table;
+  a.v1 = (const uint8_t*)v1;
+  a.v2 = (const uint8_t*)v2;
+  a.lengths = (const int32_t*)lengths;
+  a.P = (const int32_t*)P;
+  a.prev_v = (const uint8_t*)prev_v;
+  a.counts = (const int32_t*)counts;
+  a.q = (int32_t*)q;
+  a.active = (uint8_t*)active;
+  a.P_out = (int32_t*)P_out;
+  a.prev_out = (uint8_t*)prev_out;
+  a.counts1 = w + l.counts1;
+  a.counts_out = (int32_t*)counts_out;
+  a.scratch = (int32_t*)scratch;
+  a.rows1 = w + l.rows1;
+  a.rows2 = w + l.rows2;
+  a.agg1 = reinterpret_cast<unsigned long long*>(w + l.agg1);
+  a.agg2 = reinterpret_cast<unsigned long long*>(w + l.agg2);
+  a.ctr = w + l.ctr;
+  a.flags1 = w + l.flags1;
+  a.flags2 = w + l.flags2;
+  a.prim1 = reinterpret_cast<int2*>(w + l.prim1);
+  a.pool1 = reinterpret_cast<int2*>(w + l.pool1);
+  a.dir1 = w + l.dir1;
+  a.prim2 = w + l.prim2;
+  a.pool2 = w + l.pool2;
+  a.dir2 = w + l.dir2;
+  a.bk = w + l.bk;
+  a.N = N;
+  a.n_tiles = pair_tiles_of(cap, shift);
+  a.cap = (int)cap;
+  a.j = j;
+  a.nst = nst;
+  a.shift = shift;
+  return a;
+}
 
 
 struct WalkArgs {
@@ -887,13 +1214,17 @@ int msbwt_lf_stage(const void* table, const void* v, const void* lengths, const 
   return (int)cudaGetLastError();
 }
 
-// Slot positions per lf_pair tile (the tests' tile edge cases read it).
-int msbwt_lf_pair_tile() { return kPairTile; }
+// lf_pair's slot tile for N reads and a capacity cap, in positions (the
+// tests place their slots against it).
+int msbwt_lf_pair_tile(int64_t N, int64_t cap) { return 1 << pair_shift(N, cap); }
+
+// Places a tile's own bucket holds; the slots past them go to its chunks.
+int msbwt_lf_pair_bucket() { return kBucket; }
 
 // lf_pair's work array for N reads and a buffer of cap positions, in int32
 // words (the caller allocates it, 16 B-aligned).
 int64_t msbwt_lf_pair_work_len(int64_t N, int64_t cap) {
-  return PairLayout(N, pair_tiles_of(cap)).total;
+  return PairLayout(N, pair_tiles_of(cap, pair_shift(N, cap))).total;
 }
 
 // Two BCR columns j, j + 1 for one merge pass: table i32 [rows, 32] with
@@ -903,7 +1234,7 @@ int64_t msbwt_lf_pair_work_len(int64_t N, int64_t cap) {
 // inactive), active bool [2N], P_out i32 [N], prev_out u8 [N], counts_out
 // i32 [6] (after both columns). scratch i32 [8] is lf_stage's (zeroed,
 // left zeroed); work i32 [msbwt_lf_pair_work_len(N, cap)] is the call's
-// own. Nine device events on `stream`; returns cudaGetLastError().
+// own. Five device events on `stream`; returns cudaGetLastError().
 int msbwt_lf_pair(const void* table, const void* v1, const void* v2, const void* lengths,
                   const void* P, const void* prev_v, const void* counts, void* q,
                   void* active, void* P_out, void* prev_out, void* counts_out,
@@ -914,58 +1245,13 @@ int msbwt_lf_pair(const void* table, const void* v1, const void* v2, const void*
     cudaMemcpyAsync(counts_out, counts, kSyms * sizeof(int32_t), cudaMemcpyDeviceToDevice, st);
     return (int)cudaGetLastError();
   }
-  const int64_t n_tiles = pair_tiles_of(cap);
-  const PairLayout l(N, n_tiles);
-  int32_t* w = (int32_t*)work;
-  PairArgs a = {};
-  a.table = (const int32_t*)table;
-  a.v1 = (const uint8_t*)v1;
-  a.v2 = (const uint8_t*)v2;
-  a.lengths = (const int32_t*)lengths;
-  a.P = (const int32_t*)P;
-  a.prev_v = (const uint8_t*)prev_v;
-  a.counts = (const int32_t*)counts;
-  a.q = (int32_t*)q;
-  a.active = (uint8_t*)active;
-  a.P_out = (int32_t*)P_out;
-  a.prev_out = (uint8_t*)prev_out;
-  a.counts1 = w + l.counts1;
-  a.counts_out = (int32_t*)counts_out;
-  a.scratch = (int32_t*)scratch;
-  a.tiles1 = w + l.tiles1;
-  a.tiles2 = w + l.tiles2;
-  a.loc = w + l.loc;
-  a.bucket = reinterpret_cast<int2*>(w + l.bucket);
-  a.bk = w + l.bk;
-  a.N = N;
-  a.n_tiles = n_tiles;
-  a.cap = (int)cap;
-  a.j = j;
-  a.nst = nst;
-  const int64_t rows = n_tiles + 1;
-  const int64_t scan1 = (rows + kThreads * kScanRows1 - 1) / (kThreads * kScanRows1);
-  const int64_t scan2 = (rows + kThreads * kScanRows2 - 1) / (kThreads * kScanRows2);
-  if (scan1 > kMaxScanBlocks || scan2 > kMaxScanBlocks || cap >= (int64_t(1) << 31))
+  if (cap < 0 || cap >= (int64_t(1) << 31) || N >= (int64_t(1) << 30))
     return (int)cudaErrorInvalidValue;
-  int64_t blocks = (N + kThreads - 1) / kThreads;
-  if (blocks > kMaxStageBlocks) blocks = kMaxStageBlocks;
-  int64_t rank_blocks = (n_tiles + kTileGroup - 1) / kTileGroup;
-  if (rank_blocks > kMaxRankBlocks) rank_blocks = kMaxRankBlocks;
-  const unsigned g = (unsigned)blocks, gr = (unsigned)rank_blocks;
-  unsigned long long* agg1 = reinterpret_cast<unsigned long long*>(w + l.agg1);
-  unsigned long long* agg2 = reinterpret_cast<unsigned long long*>(w + l.agg2);
-  unsigned* tickets = reinterpret_cast<unsigned*>(w + l.tickets);
-  cudaMemsetAsync(a.tiles1, 0, (l.loc - l.tiles1) * sizeof(int32_t), st);
-  pair_first_kernel<<<g, kThreads, 0, st>>>(a);
-  pair_scan_kernel<kSyms, kPairRow, kScanRows1><<<(unsigned)scan1, kThreads, 0, st>>>(
-      a.tiles1, rows, agg1, tickets);
-  pair_place1_kernel<<<g, kThreads, 0, st>>>(a);
-  pair_rank1_kernel<<<gr, kThreads, 0, st>>>(a);
-  pair_scan_kernel<1, 1, kScanRows2><<<(unsigned)scan2, kThreads, 0, st>>>(
-      a.tiles2, rows, agg2, tickets + 1);
-  pair_place2_kernel<<<g, kThreads, 0, st>>>(a);
-  pair_rank2_kernel<<<gr, kThreads, 0, st>>>(a);
-  pair_final_kernel<<<g, kThreads, 0, st>>>(a);
+  const int shift = pair_shift(N, cap);
+  const PairLayout l(N, pair_tiles_of(cap, shift));
+  PairArgs a = pair_args(table, v1, v2, lengths, P, prev_v, counts, q, active, P_out, prev_out,
+                         counts_out, scratch, work, N, cap, j, nst, shift, l);
+  launch_pair(a, l, st);
   return (int)cudaGetLastError();
 }
 

@@ -39,7 +39,7 @@ initial fill.
 
 Radix 2. ``build_radix`` picks how many columns one merge pass consumes:
 radix 2 (``ops.lf.lf_pair``, the port of ``_pallas_stage_step2``: one
-call of nine device events a pair on the card) ranks two columns from one
+call of five device events a pair on the card) ranks two columns from one
 table and inserts both through one pass of 2N slots, which halves the passes over the buffer
 at the cost of N-sized work a pair. It pays only where N is small next to
 the buffer, i.e. for long reads: the JAX package's rule picks it for a

@@ -15,11 +15,11 @@ host launches a column or a walk step. Here each is one call:
   is the plain version.
 * **lf_pair** — two BCR columns j, j + 1 for one merge pass (radix 2):
   column j as ``lf_stage``, column j + 1's slots from the same table, and
-  column j's moved past them. Nine device events a pair (a memset and
-  eight kernels, no sort: the slots are ranked by 16K-position tile), the
-  counts summed in the same scratch. ``lf_pair_plain`` (``lf_stage_plain``,
-  ``pair_order``, ``pair_slots``: argsorts and scans in torch) is the plain
-  version.
+  column j's moved past them. Five device events a pair (a memset and four
+  kernels, no sort: the slots are ranked by slot tile, each slot placed in
+  its tile's bucket by the atomic that counts it), the counts summed in the
+  same scratch. ``lf_pair_plain`` (``lf_stage_plain``, ``pair_order``,
+  ``pair_slots``: argsorts and scans in torch) is the plain version.
 * **lf_walk** — a batched LF walk run to its end inside one call. Four walks
   share the kernel file: ``lf_walk_cyclic`` (the extend's cyclic terminator
   search, symbols from the stage view) and ``lf_walk_extract`` (reads
@@ -276,9 +276,11 @@ def lf_pair(j: int, tab: torch.Tensor, cap: int, nst: int, cols: torch.Tensor,
 
     The arguments are ``lf_stage``'s, with ``cap`` the pass's capacity
     (``tab`` must have more than ``cap // 128`` rows). On CUDA tensors one
-    call of nine device events and no host sync; it allocates a work array
-    of its own (the tile counts, buckets and ``sort(q2) - k``: ~16 B a read
-    and 36 B a 16K-position tile). ``scratch`` is ``lf_stage``'s, used for
+    call of five device events and no host sync; it allocates a work array
+    of its own (each column's tile buckets and their overflow chunks, and
+    ``sort(q2) - k``: ~29 B a read and ~1.6 KB a slot tile, a tile of 128
+    to 32K positions holding at most 64 slots on average). ``scratch`` is
+    ``lf_stage``'s, used for
     both columns' counts and left zeroed, so the stage loop passes its one
     scratch to every ``lf_stage`` and ``lf_pair`` call; launches that may
     overlap need a scratch each. Unused on CPU tensors.

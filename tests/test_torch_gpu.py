@@ -5,9 +5,10 @@ run tier, a chunked deep prefix cache, ``RleBWT``'s policy), the H-M and
 doubling merges and two gloo ranks sharing the card, each against the same
 functions on the CPU; radix-2 builds (kernel == radix 1 == plain) and one
 radix-2 step against the CPU's; ``lf_pair`` (the radix-2 column pair)
-against its plain twin with slots on 16K tile edges, a full tile, empty
-tiles, N = 1, no read active in the second column, slots past 2^30 and
-1.1M reads, called again and again with ``lf_stage`` on one scratch, on
+against its plain twin with slots on tile edges, full tiles, empty tiles,
+tiles at the edges of their buckets, clustered and many overfull tiles,
+N = 1, no read active in the second column, slots past 2^30 and 1.1M
+reads, its tile rule, called again and again with ``lf_stage`` on one scratch, on
 two streams at once, and bad inputs refused; the profiling timers and trace, and the
 session-health memory probe; the LF-step kernels (``lf_stage``, the four
 ``lf_walk`` walks) against their plain twins on the same CUDA tensors at
@@ -527,23 +528,49 @@ def lf_stage_args(case, dev):
             t("P"), t("counts"), t("prev_v"))
 
 
-# lf_pair cases: slots on tile edges, every slot of one tile, empty tiles
-# between two, ~10 slots a tile over 200 tiles, N = 1, no read active in
-# column j + 1 (m2 = 0), ragged reads; "huge_c" (CPU only: slots past 2^30 from the C array, each old
+# lf_pair cases: slots on tile edges, a dense run that fills every tile it
+# covers (128 tiles at once, each past its bucket), two tiles with the ones
+# between empty (the bitmap path), ~10 slots a tile over 200 tiles, tiles
+# holding bucket - 1, bucket, bucket + 1, 128, 129 and 2 bucket + 1 slots, runs of
+# consecutive slots across tile edges (as coverage gives), 32 tiles of 130
+# to 300 slots, N = 1, no read active in column j + 1 (m2 = 0), ragged
+# reads; "huge_c" (CPU only: slots past 2^30 from the C array, each old
 # position clamped to cap, outside the kernel's tiles) and "past_2_30"
 # (card only: a buffer of 2^30 + 2^17 symbols) put the slots past 2^30
-LF_PAIR_KINDS = ["tile_edges", "one_tile", "empty_tiles", "sparse", "one", "no_second",
-                 "ragged"]
+LF_PAIR_KINDS = ["tile_edges", "one_tile", "empty_tiles", "sparse", "bucket_edges",
+                 "clustered", "many_big", "one", "no_second", "ragged"]
+PAIR_BUCKET = 128  # places of a tile's own bucket (lf.cu kBucket; the card reads the library's)
+
+
+def pair_tile_rule(N, cap):
+    """lf_pair's slot tile for N reads and a capacity cap, as lf.cu's
+    ``pair_shift`` picks it: the largest power of two from 128 to 32K
+    positions with N * tile <= 64 * (cap + 1) (at most 64 slots a tile on
+    average)."""
+    s = 15
+    while s > 7 and (N << s) > 64 * (cap + 1):
+        s -= 1
+    return 1 << s
 
 
 def pair_tile():
-    """lf_pair's slot tile, as its kernel library reports it."""
+    """lf_pair's slot tile as its kernel library gives it: a function of
+    (N, cap), as ``pair_tile_rule``."""
     from rust_msbwt_tpu_torch import _kernels
 
-    return _kernels.load().msbwt_lf_pair_tile()
+    lib = _kernels.load()
+    return lambda N, cap: lib.msbwt_lf_pair_tile(N, cap)
 
 
-def lf_pair_case(kind, seed, N=None, *, tile):
+def pair_bucket():
+    """Places of an lf_pair tile's own bucket, as its kernel library gives
+    them."""
+    from rust_msbwt_tpu_torch import _kernels
+
+    return _kernels.load().msbwt_lf_pair_bucket()
+
+
+def lf_pair_case(kind, seed, N=None, *, tile, bucket=PAIR_BUCKET):
     """Inputs of one ``lf_pair`` column pair j, j + 1 (j = 4), from a seed
     (also run on the CPU by tests/test_torch_radix.py against a numpy
     oracle). The buffer is n symbols of A, so column j's slot of a read is
@@ -551,25 +578,54 @@ def lf_pair_case(kind, seed, N=None, *, tile):
     gives them, so column j + 1's are distinct too. The stage view holds
     '$' at column len + 1 and A..T before it; ``cap`` is the pass's
     capacity (every slot of the pair below it, save "huge_c"); ``tile``
-    the kernel's slot tile (``pair_tile``), which the kinds place their
-    slots against."""
+    gives the kernel's slot tile for (N, cap) (``pair_tile``, or
+    ``pair_tile_rule`` on the CPU) and ``bucket`` its bucket's places
+    (``pair_bucket``), which the kinds place their slots against: each
+    fixes n and N first, then the tile of that capacity."""
     r = np.random.default_rng(seed)
     j, L = 4, 7
-    T = tile
+    T16 = 1 << 14
+
+    def tile_of(n, N):  # the kernel's tile at this case's capacity
+        return tile(N, -(-(n + 2 * N + 1) // 128) * 128)
+
     if kind == "tile_edges":
-        n = 5 * T
+        n, N = 5 * T16, 516
+        T = tile_of(n, N)
         edges = np.array([k * T + d for k in range(1, 5) for d in (-2, -1, 0, 1)])
-        rest = r.choice(np.setdiff1d(np.arange(T // 2, n), edges), 500, replace=False)
+        rest = r.choice(np.setdiff1d(np.arange(T // 2, n), edges), N - edges.size,
+                        replace=False)
         q1 = np.concatenate([edges, rest])
-    elif kind == "one_tile":  # every slot of tile 2: the bitmap path, full
-        n, q1 = 4 * T, np.arange(2 * T, 3 * T)
+    elif kind == "one_tile":  # a dense run: every tile it covers is full
+        n, q1 = 4 * T16, np.arange(2 * T16, 3 * T16)
     elif kind == "empty_tiles":  # tiles 0 and 5 only
-        n = 6 * T + 77
+        n, N = 6 * T16 + 77, 600
+        T = tile_of(n, N)
         q1 = np.concatenate([r.choice(np.arange(T // 2, T), 300, replace=False),
                              r.choice(np.arange(5 * T, 6 * T), 300, replace=False)])
     elif kind == "sparse":  # a warp a tile
-        n = 200 * T
-        q1 = r.choice(np.arange(T // 2, n), 2000, replace=False)
+        n = 200 * T16
+        q1 = r.choice(np.arange(T16 // 2, n), 2000, replace=False)
+    elif kind == "bucket_edges":  # tiles 1..6 hold bucket - 1 .. 2 bucket + 1 slots
+        sizes = [bucket - 1, bucket, bucket + 1, 128, 129, 2 * bucket + 1]
+        n, N = 64 * T16, sum(sizes) + 300
+        T = tile_of(n, N)
+        q1 = np.concatenate([r.choice(np.arange(k * T, (k + 1) * T), c, replace=False)
+                             for k, c in enumerate(sizes, 1)]
+                            + [r.choice(np.arange(8 * T, n), 300, replace=False)])
+    elif kind == "clustered":  # runs of consecutive slots across tile edges
+        runs = r.integers(40, 400, 24)
+        n, N = 96 * T16, int(runs.sum())
+        T = tile_of(n, N)
+        edges = r.choice(np.arange(1, n // T), runs.size, replace=False) * T
+        q1 = np.concatenate([e - r.integers(0, k) + np.arange(k) for e, k in zip(edges, runs)])
+    elif kind == "many_big":  # 32 tiles past the warp's 128 slots at once
+        sizes = r.integers(130, 300, 32)
+        n, N = 1 << 21, int(sizes.sum())
+        T = tile_of(n, N)
+        tiles = r.choice(np.arange(1, n // T), sizes.size, replace=False)
+        q1 = np.concatenate([r.choice(np.arange(t * T, (t + 1) * T), c, replace=False)
+                             for t, c in zip(tiles, sizes)])
     elif kind == "one":
         n, q1 = 1000, np.array([777])
     elif kind == "past_2_30":  # the top 2^17 positions
@@ -696,15 +752,19 @@ def test_lf_stage_kernel_matches_plain(cuda, kind):
 def test_lf_pair_kernel_matches_plain(cuda, kind):
     """One column pair through the kernels and through ``lf_pair_plain`` on
     the same CUDA tensors: every output equal, one call. The cases put
-    slots on 16K tile edges, fill one tile (the bitmap path), leave tiles
-    empty between two, spread ~10 a tile (a warp a tile), take N = 1 and
-    m2 = 0; ``past_2_30``: slots past 2^30 in a buffer of 2^30 + 2^17
-    symbols (65,544 tiles: the rank kernels' grid-stride loop); ``grid``:
-    N = 1.1M ragged reads, past the per-read kernels' grid cap."""
+    slots on tile edges, fill every tile of a dense run (each past its
+    bucket), leave tiles empty between two (the bitmap path), spread ~10 a
+    tile (a warp a tile), fill tiles to bucket - 1, bucket, bucket + 1, 128
+    and 129 slots, run slots across tile edges, put 130-300 slots in each
+    of 32 tiles, take N = 1 and m2 = 0; ``past_2_30``: 100k slots past 2^30
+    in a buffer of 2^30 + 2^17 symbols (8 16K tiles of ~12,500 slots: chunks
+    up to the last, 65,544 tiles: the rank kernels' grid-stride loop); ``grid``: N =
+    1.1M ragged reads, past the per-read kernels' grid cap."""
     from rust_msbwt_tpu_torch.ops.lf import lf_pair, lf_pair_plain
 
-    case = (lf_pair_case("ragged", 99, N=1_100_003, tile=pair_tile()) if kind == "grid"
-            else lf_pair_case(kind, len(kind), tile=pair_tile()))
+    case = (lf_pair_case("ragged", 99, N=1_100_003, tile=pair_tile(), bucket=pair_bucket())
+            if kind == "grid"
+            else lf_pair_case(kind, len(kind), tile=pair_tile(), bucket=pair_bucket()))
     args = lf_pair_args(case, cuda)
     before = lf_pair.launches
     got = lf_pair(*args)
@@ -726,8 +786,9 @@ def test_lf_pair_repeats_keep_counts(cuda):
     from rust_msbwt_tpu_torch.ops.lf import (lf_pair, lf_pair_plain, lf_stage, lf_stage_plain,
                                              stage_scratch)
 
-    pairs = [lf_pair_args(lf_pair_case(kind, 7, tile=pair_tile()), cuda)
-             for kind in ("ragged", "one", "no_second", "tile_edges")]
+    pairs = [lf_pair_args(lf_pair_case(kind, 7, tile=pair_tile(), bucket=pair_bucket()), cuda)
+             for kind in ("ragged", "one", "no_second", "tile_edges", "one_tile",
+                          "bucket_edges", "clustered")]
     stage = lf_stage_args(lf_stage_case("ragged", 7), cuda)
     want, want_stage = [lf_pair_plain(*a) for a in pairs], lf_stage_plain(*stage)
     scratch = stage_scratch(cuda)
@@ -745,7 +806,7 @@ def test_lf_pair_rejects_bad_input(cuda):
     from rust_msbwt_tpu_torch.ops.lf import lf_pair
 
     j, tab, cap, nst, cols, lengths, P, counts, prev_v = lf_pair_args(
-        lf_pair_case("ragged", 5, tile=pair_tile()), cuda)
+        lf_pair_case("ragged", 5, tile=pair_tile(), bucket=pair_bucket()), cuda)
     before = lf_pair.launches
     with pytest.raises(TypeError):
         lf_pair(j, tab, cap, nst, cols, lengths, P.long(), counts, prev_v)
@@ -759,6 +820,19 @@ def test_lf_pair_rejects_bad_input(cuda):
         lf_pair(j, tab, cap, nst, cols, lengths, P, counts, prev_v,
                 scratch=torch.zeros(8, dtype=torch.int64, device=cuda))
     assert lf_pair.launches == before
+
+
+def test_lf_pair_tile_matches_rule(cuda):
+    """The kernel library's slot tile and bucket are the ones the cases
+    place their slots against (``pair_tile_rule``, ``PAIR_BUCKET``), over
+    read counts and capacities from one read to 2^30 and the densities of a
+    build's first columns to its last."""
+    lib_tile = pair_tile()
+    assert pair_bucket() == PAIR_BUCKET
+    for N in (1, 7, 500, 516, 16_384, 500_000, 2_000_000, 1 << 30):
+        for per in (1, 2, 3, 17, 100, 1_001, 4_000, 1 << 20):
+            cap = min(N * per, 2**31 - 2)
+            assert lib_tile(N, cap) == pair_tile_rule(N, cap), (N, cap)
 
 
 @pytest.mark.parametrize("walk", ["cyclic", "lengths", "extract", "extract_short", "locate"])
@@ -882,7 +956,7 @@ STREAM_READS, STREAM_REPS, STREAM_GATE = 100_003, 256, 2_000_000_000
 
 def _two_stream_launches(cuda, threaded, own_scratch, wrapper="lf_stage"):
     """``STREAM_REPS`` calls of ``wrapper`` (``lf_stage``, or ``lf_pair``:
-    nine device events a call) on each of two streams, each stream on its
+    five device events a call) on each of two streams, each stream on its
     own inputs (two seeds), alternating with no sync between launches; each
     stream first runs a spin kernel, so the launches queue up behind it and
     the two queues drain on the card together. From one thread, or from
@@ -896,8 +970,8 @@ def _two_stream_launches(cuda, threaded, own_scratch, wrapper="lf_stage"):
     fn = getattr(lf, wrapper)
     streams = [torch.cuda.Stream(cuda) for _ in range(2)]
     if wrapper == "lf_pair":
-        cases = [lf_pair_args(lf_pair_case("ragged", seed, N=STREAM_READS, tile=pair_tile()),
-                              cuda) for seed in (301, 302)]
+        cases = [lf_pair_args(lf_pair_case("ragged", seed, N=STREAM_READS, tile=pair_tile(),
+                                           bucket=pair_bucket()), cuda) for seed in (301, 302)]
     else:
         cases = [lf_stage_args(lf_stage_case("ragged", seed, N=STREAM_READS), cuda)
                  for seed in (301, 302)]

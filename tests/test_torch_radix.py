@@ -32,7 +32,7 @@ from rust_msbwt_tpu_torch.ops.alphabet import convert_itos
 from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert_slots
 from rust_msbwt_tpu_torch.ops.rank import PAD
 from rust_msbwt_tpu_torch.utils.streaming import StreamingBuilder
-from test_torch_gpu import LF_PAIR_KINDS, lf_pair_args, lf_pair_case
+from test_torch_gpu import LF_PAIR_KINDS, lf_pair_args, lf_pair_case, pair_tile_rule
 
 
 def _reads(kind, seed):
@@ -198,11 +198,13 @@ def _pair_oracle(case):
 @pytest.mark.parametrize("kind", LF_PAIR_KINDS + ["huge_c"])
 def test_lf_pair_plain_matches_oracle(kind):
     """``lf_pair_plain`` on the card tests' column-pair cases (slots on tile
-    edges, a full tile, empty tiles, N = 1, m2 = 0, ragged; "huge_c": slots
-    past 2^30) equals the numpy argsort oracle; the wrapper on CPU tensors
-    runs it and launches nothing."""
-    # the plain twin has no tiles: the cases at the kernel's 16K-slot tile
-    case = lf_pair_case(kind, len(kind), tile=1 << 14)
+    edges, full tiles, empty tiles, tiles at their bucket's edges, clustered
+    and many overfull tiles, N = 1, m2 = 0, ragged; "huge_c": slots past
+    2^30) equals the numpy argsort oracle; the wrapper on CPU tensors runs
+    it and launches nothing."""
+    # the plain twin has no tiles: the cases at the kernel's tile rule and
+    # its 128-place bucket
+    case = lf_pair_case(kind, len(kind), tile=pair_tile_rule, bucket=128)
     args = lf_pair_args(case, "cpu")
     before = lf.lf_pair.launches
     got = lf.lf_pair(*args, scratch=lf.stage_scratch("cpu"))
