@@ -21,7 +21,7 @@ exit code, and no result line.
 Phases:
   1. card check (``nvidia-smi`` name and power limit; no CUDA -> exit 2)
   2. kernel build (time + ``-Xptxas -v``), then ``session_health`` (dispatch
-     round trip, bf16 matmul rate, memory rate)
+     round trip, memory rate)
   3. merge-insert kernel against its plain PyTorch version on the card,
      exact, at small shapes, at the tile edge shapes of
      ``tests/test_torch_gpu.py`` and at one 505M-symbol pass with 5M
@@ -2030,7 +2030,9 @@ def phase_long(torch, np, dev):
     from rust_msbwt_tpu_torch.ops import bcr, lf
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert, merge_insert_slots
     from rust_msbwt_tpu_torch.ops.rle import encode_symbols
-    from rust_msbwt_tpu_torch.utils.profiling import build_roofline, timed
+    from rust_msbwt_tpu_torch.utils.profiling import DEFAULT_HBM_BW, timed
+
+    from portbench.roofline import merge_pass_bytes
 
     reads, lengths = genome_reads(np, LONG_READS, LONG_LEN, 0x10C6)
     n = LONG_READS * (LONG_LEN + 1)
@@ -2120,14 +2122,14 @@ def phase_long(torch, np, dev):
     res = {}
     for radix, peak in ((1, peak1), (2, peak2)):
         loop = median(loops[radix])
-        bound = build_roofline(n, LONG_LEN, loop, n_reads=LONG_READS, radix=radix)
+        bound = merge_pass_bytes(0, lengths, LONG_LEN // 2 if radix == 2 else 0)
         res[radix] = {"build_s": median(builds[radix]), "loop_s": loop, "peak": peak}
         log(f"[long] radix {radix}: build_msbwt_with_index "
             + " / ".join(f"{t:.3f}" for t in builds[radix])
             + f" s (median {res[radix]['build_s']:.3f}); device loop "
             + " / ".join(f"{t:.3f}" for t in loops[radix])
-            + f" s (median {loop:.3f}; full-buffer pass bound {bound.seconds_at_light:.3f} s "
-            f"for {bound.bytes_touched} B); peak device memory {peak / 2**30:.2f} GiB; "
+            + f" s (median {loop:.3f}; the merge passes' byte bound {bound / DEFAULT_HBM_BW:.3f}"
+            f" s for {bound} B); peak device memory {peak / 2**30:.2f} GiB; "
             f"merge kernel launches {(l1, l2)[radix - 1]['merge_insert']}, "
             f"lf_stage launches {(l1, l2)[radix - 1]['lf_stage']}, lf_pair calls "
             f"{(l1, l2)[radix - 1]['lf_pair']}")

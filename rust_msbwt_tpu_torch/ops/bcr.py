@@ -75,6 +75,7 @@ from rust_msbwt_tpu_torch.ops.rank import (
     OccIndex,
     starts_from_counts,
 )
+from rust_msbwt_tpu_torch.utils.profiling import annotate
 
 _I32 = torch.int32
 
@@ -146,25 +147,26 @@ def _prepare_build(reads, lengths, sorted_insert, n0=0, base_string_count=0):
     from rust_msbwt_tpu_torch.utils.checks import validate_reads
     from rust_msbwt_tpu_torch.utils.native import reads_to_cols_native, sort_rows_native
 
-    reads = np.asarray(reads, dtype=np.uint8)
-    lengths = np.asarray(lengths, dtype=np.int32)
-    validate_reads(reads, lengths)
-    N = reads.shape[0]
-    if N == 0:
-        return None
-    cols = None
-    if sorted_insert:
-        order = sort_rows_native(reads)
+    with annotate("msbwt.prep.sort"):
+        reads = np.asarray(reads, dtype=np.uint8)
+        lengths = np.asarray(lengths, dtype=np.int32)
+        validate_reads(reads, lengths)
+        N = reads.shape[0]
+        if N == 0:
+            return None
+        order = sort_rows_native(reads) if sorted_insert else None
+        if sorted_insert and order is None:
+            reads, lengths = sort_reads(reads, lengths)
+    with annotate("msbwt.prep.view"):
+        cols = None
         if order is not None:
-            # native fused path: argsort + gather + column view in C++
+            # native fused path: gather + column view in C++
             cols = reads_to_cols_native(reads, lengths, order)
             lengths = lengths[order]
-        else:
-            reads, lengths = sort_reads(reads, lengths)
-    if cols is None:
-        cols = reads_to_cols_native(reads, lengths)
-    if cols is None:
-        cols = reads_to_cols(reads, lengths)
+        if cols is None:
+            cols = reads_to_cols_native(reads, lengths)
+        if cols is None:
+            cols = reads_to_cols(reads, lengths)
     n_cap = n0 + int(lengths.sum()) + N
     if n_cap >= 2**31:
         raise ValueError("single-device build limited to 2^31-1 symbols")
@@ -430,25 +432,30 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
     symbol counts. Every ``lf_stage`` and ``lf_pair`` call gets the build's
     own scratch, so builds on two streams share no accumulator."""
     N, L, n0, n_cap = p["N"], p["L"], p["n0"], p["n_cap"]
-    cols = torch.from_numpy(p["cols"]).to(device)
-    lengths = torch.from_numpy(p["lengths"]).to(device)
+    with annotate("msbwt.upload"):
+        cols = torch.from_numpy(p["cols"]).to(device)
+        lengths = torch.from_numpy(p["lengths"]).to(device)
     # the base's slots first: its index (when derived here) is freed before
     # the build's buffers are allocated
-    q1 = _stage1_slots(p, cols, lengths, base, base_index, base_rot_max, merge)
-    radix = build_radix(n_cap, N, n0)
-    buckets = bucket_schedule(n0, N, L, n_cap, BIN)
-    if radix == 2:
-        buckets = pair_buckets(buckets, L)
-    full_cap = buckets[-1][2]
-    bufs = [torch.full((full_cap,), PAD, dtype=torch.uint8, device=device)
-            for _ in range(2)]
-    table = torch.empty((full_cap // BIN + 1, ROW), dtype=_I32, device=device)
-    counts = torch.zeros(VC_LEN, dtype=_I32, device=device)
-    scratch = stage_scratch(device)
+    with annotate("msbwt.stage1"):
+        q1 = _stage1_slots(p, cols, lengths, base, base_index, base_rot_max, merge)
+    with annotate("msbwt.buffers"):
+        radix = build_radix(n_cap, N, n0)
+        buckets = bucket_schedule(n0, N, L, n_cap, BIN)
+        if radix == 2:
+            buckets = pair_buckets(buckets, L)
+        full_cap = buckets[-1][2]
+        bufs = [torch.full((full_cap,), PAD, dtype=torch.uint8, device=device)
+                for _ in range(2)]
+        table = torch.empty((full_cap // BIN + 1, ROW), dtype=_I32, device=device)
+        counts = torch.zeros(VC_LEN, dtype=_I32, device=device)
+        scratch = stage_scratch(device)
+        if n0:
+            bufs[0][:n0] = base
     if n0:
-        bufs[0][:n0] = base
-        # six compare-sums: no [n0]-sized int64 temporary
-        counts = torch.stack([(base == s).sum(dtype=_I32) for s in range(VC_LEN)])
+        with annotate("msbwt.base_counts"):
+            # six compare-sums: no [n0]-sized int64 temporary
+            counts = torch.stack([(base == s).sum(dtype=_I32) for s in range(VC_LEN)])
 
     def run_pass(src, cap, q, v, active):
         dst = 1 - src
@@ -456,31 +463,35 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
                         table=table[: cap // BIN + 1])
         return dst, m
 
-    # stage 1: every read's last symbol at its terminator slot
-    cap = buckets[0][2]  # covers stage 1 too (n0 + N <= cap)
-    prev_v = cols[1]
-    active = lengths >= 0
-    cur, m = run_pass(0, cap, q1, prev_v, active)
-    n_valid = m + n0
-    P = q1
-    counts = _bump_counts(counts, prev_v, active)
-    nst = p["n_strings_total"]
-    for ja, jb, cap in buckets:
-        tab = table[: cap // BIN + 1]
-        j = ja
-        while j < jb:
-            if radix == 2 and j + 1 < jb:
-                q, v, active, P, counts, prev_v = lf_pair(
-                    j, tab, cap, nst, cols, lengths, P, counts, prev_v, scratch=scratch)
-                j += 2
-            else:
-                q, v, active, P, counts, prev_v = lf_stage(
-                    j, tab, nst, cols, lengths, P, counts, prev_v, scratch=scratch)
-                j += 1
-            cur, m = run_pass(cur, cap, q, v, active)
-            n_valid = n_valid + m
-    if int(n_valid) != n_cap:  # the one host sync of the stage loop
-        raise RuntimeError(f"build inserted {int(n_valid)} symbols, expected {n_cap}")
+    # the passes are only enqueued here (the device's time shows at the sync)
+    with annotate("msbwt.stage_loop"):
+        # stage 1: every read's last symbol at its terminator slot
+        cap = buckets[0][2]  # covers stage 1 too (n0 + N <= cap)
+        prev_v = cols[1]
+        active = lengths >= 0
+        cur, m = run_pass(0, cap, q1, prev_v, active)
+        n_valid = m + n0
+        P = q1
+        counts = _bump_counts(counts, prev_v, active)
+        nst = p["n_strings_total"]
+        for ja, jb, cap in buckets:
+            tab = table[: cap // BIN + 1]
+            j = ja
+            while j < jb:
+                if radix == 2 and j + 1 < jb:
+                    q, v, active, P, counts, prev_v = lf_pair(
+                        j, tab, cap, nst, cols, lengths, P, counts, prev_v, scratch=scratch)
+                    j += 2
+                else:
+                    q, v, active, P, counts, prev_v = lf_stage(
+                        j, tab, nst, cols, lengths, P, counts, prev_v, scratch=scratch)
+                    j += 1
+                cur, m = run_pass(cur, cap, q, v, active)
+                n_valid = n_valid + m
+    with annotate("msbwt.sync"):  # the one host sync of the stage loop
+        n_valid = int(n_valid)
+    if n_valid != n_cap:
+        raise RuntimeError(f"build inserted {n_valid} symbols, expected {n_cap}")
     return bufs[cur], table, counts
 
 
@@ -504,24 +515,31 @@ def build_msbwt_with_index(reads: np.ndarray, lengths: np.ndarray,
     (default: the kernel wrapper; ``ops.merge_insert.merge_insert_slots``
     runs the plain version on any device, for comparison).
 
+    Under ``torch.profiler`` the call is the span ``msbwt.build``, holding
+    one span a host step (``utils.profiling.annotate``): ``msbwt.prep.sort``,
+    ``.prep.view``, ``.upload``, ``.stage1``, ``.buffers``, ``.base_counts``
+    (onto a base), ``.stage_loop`` and ``.sync``; none a column or a pass.
+
     >>> from rust_msbwt_tpu_torch.ops.alphabet import convert_stoi
     >>> reads, lens = encode_reads([convert_stoi("ACGT"), convert_stoi("TGCA")])
     >>> idx, packed = build_msbwt_with_index(reads, lens, device="cpu")
     >>> idx.n, idx.bwt[: idx.n].tolist()
     (10, [5, 1, 2, 0, 3, 1, 5, 2, 3, 0])
     """
-    base = _base_symbols(base, device)
-    p = _prepare_build(reads, lengths, sorted_insert, int(base.shape[0]),
-                       base_string_count)
-    if p is None:
-        return index_from_symbols(base, merge=merge)
-    buf, table, counts = _build_device(p, device, merge, base, base_index, base_rot_max)
-    n = p["n_cap"]
-    # the last bucket runs at aligned(n), so buf is [ceil(n/128) * 128] and
-    # table is [ceil(n/128) + 1, 32] with the totals in its terminal row
-    starts = starts_from_counts(counts)
-    idx = OccIndex(bwt=buf, occ=table[:, :VC_LEN].contiguous(), starts=starts, n=n)
-    return idx, PackedOccIndex(table=table, starts=starts, n=n)
+    with annotate("msbwt.build"):
+        base = _base_symbols(base, device)
+        p = _prepare_build(reads, lengths, sorted_insert, int(base.shape[0]),
+                           base_string_count)
+        if p is None:
+            return index_from_symbols(base, merge=merge)
+        buf, table, counts = _build_device(p, device, merge, base, base_index,
+                                           base_rot_max)
+        n = p["n_cap"]
+        # the last bucket runs at aligned(n), so buf is [ceil(n/128) * 128] and
+        # table is [ceil(n/128) + 1, 32] with the totals in its terminal row
+        starts = starts_from_counts(counts)
+        idx = OccIndex(bwt=buf, occ=table[:, :VC_LEN].contiguous(), starts=starts, n=n)
+        return idx, PackedOccIndex(table=table, starts=starts, n=n)
 
 
 def build_msbwt(reads: np.ndarray, lengths: np.ndarray, sorted_insert: bool = True,

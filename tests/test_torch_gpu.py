@@ -9,11 +9,12 @@ against its plain twin with slots on tile edges, full tiles, empty tiles,
 tiles at the edges of their buckets, clustered and many overfull tiles,
 N = 1, no read active in the second column, slots past 2^30 and 1.1M
 reads, its tile rule, called again and again with ``lf_stage`` on one scratch, on
-two streams at once, and bad inputs refused; the profiling timers and trace, and the
-session-health memory probe; the LF-step kernels (``lf_stage``, the four
-``lf_walk`` walks) against their plain twins on the same CUDA tensors at
-edge shapes, and builds, extends, streamed builds, extract and locate
-through them against the CPU's plain path; the query kernels
+two streams at once, and bad inputs refused; the profiling timers and trace, the
+session-health memory probe, and the build entry's spans on the profiler's
+clock; the LF-step kernels (``lf_stage``, the four ``lf_walk`` walks)
+against their plain twins on the same CUDA tensors at edge shapes, and
+builds, extends, streamed builds, extract and locate through them against
+the CPU's plain path; the query kernels
 (``kmer_ranges_packed``, ``kmer_counts_pair``) against their plain twins
 on the same CUDA tensors at edge shapes (B = 1, B = 0, every query absent,
 n % 128 == 0, caches 6^8 / 6^9 / 6^11, 1.1M queries, warps that mix
@@ -486,8 +487,49 @@ def test_session_health_on_card(cuda):
 
     h = profiling.session_health()
     assert h["device"] == torch.cuda.get_device_name(0)
-    assert h["dispatch_roundtrip_ms"] > 0 and h["matmul_tflops_bf16"] > 0
+    assert h["dispatch_roundtrip_ms"] > 0
     assert h["mem_gbps"] > 0.6 * profiling.DEFAULT_HBM_BW / 1e9, h
+
+
+def test_build_entry_spans_on_card(cuda):
+    """One traced append, read as the benchmark reads a window
+    (``portbench.trace.Trace``): the build entry's nine spans are host
+    events, each once, and none of them is among the device events (where
+    its device-side copy would cover the idle time inside it); they share
+    the device events' clock, so the first device event that starts inside
+    ``msbwt.upload`` is the stage view's host-to-device copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.trace import OP_SPAN, Trace
+
+    # a 2 MB stage view, so its copy lasts long next to the clocks' alignment
+    rng = np.random.default_rng(29)
+    reads = rng.integers(1, 5, (40_000, 100)).astype(np.uint8)
+    lengths = np.full(40_000, 100, np.int32)
+    idx, packed = build_msbwt_with_index(reads[:20_000], lengths[:20_000], device=cuda)
+    kw = dict(base=idx.bwt[: idx.n], base_string_count=20_000, base_rot_max=101,
+              base_index=packed, device=cuda)
+    build_msbwt_with_index(reads[20_000:], lengths[20_000:], **kw)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function(OP_SPAN):
+            build_msbwt_with_index(reads[20_000:], lengths[20_000:], **kw)
+            torch.cuda.synchronize()
+    tr = Trace.from_profiler(prof, torch.cuda.get_device_name(0), 0.0, [], {})
+    assert len(tr.spans) == 1 and len(tr.device)
+    assert not [n for n in tr.device_names if n.startswith("msbwt.")]
+    spans = {n: tr.cpu[i] for i, n in enumerate(tr.cpu_names) if n.startswith("msbwt.")}
+    assert sorted(spans) == sorted(
+        ["msbwt.build", "msbwt.prep.sort", "msbwt.prep.view", "msbwt.upload", "msbwt.stage1",
+         "msbwt.buffers", "msbwt.base_counts", "msbwt.stage_loop", "msbwt.sync"])
+    assert sum(n.startswith("msbwt.") for n in tr.cpu_names) == len(spans)
+    a, b = spans["msbwt.upload"]
+    near = np.flatnonzero((tr.device[:, 1] >= a - 1000) & (tr.device[:, 0] <= b + 1000))
+    seen = [(tr.device_names[i][:40], *(tr.device[i] - a)) for i in near]  # us from the span's start
+    inside = np.flatnonzero((tr.device[:, 0] >= a) & (tr.device[:, 0] <= b))
+    assert len(inside), f"no device event starts inside msbwt.upload ({b - a} us): {seen}"
+    first = tr.device_names[inside[np.argmin(tr.device[inside, 0])]]
+    assert "Memcpy HtoD" in first, (first, seen)
 
 
 # --- the LF-step kernels (ops/lf.py, csrc/lf.cu) ----------------------------
