@@ -75,7 +75,12 @@ Phases:
      (counts reset just before) must equal phase 6's BWT; then the parts
      (index, read-length walk, terminator walk, extend build) timed apart,
      and the terminator walk's inputs (1M walkers, the 404M base) through
-     the ``lf_walk`` kernel == its plain twin, both timed against its bound
+     the ``lf_walk`` kernel == its plain twin, both timed against its bound;
+     then the benchmark's append, 100k of those reads onto the 404M base at
+     the automatic radix (2: 4,141 buffer symbols a new read; counts reset
+     just before: 51 merge passes, 50 ``lf_pair`` calls, no ``lf_stage``)
+     == the forced radix-1 append (BWT and table), and its last pair's
+     ``lf_pair`` inputs held against ``lf_pair_plain`` (``hold_pair``)
   9. recovery on phase 6's index: 100k reads extracted must equal those
      rows of the sorted reads; every hit of 1,000 located 21-mers must be
      where it says, with as many hits per query as phase 6 counted; the
@@ -192,6 +197,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_READS, READ_LEN, K, N_QUERIES, N_CHECK = 5_000_000, 100, 21, 1_000_000, 20_000
 BATCH, N_EXTRACT, N_LOCATE = 1_000_000, 100_000, 1_000
+APPEND = 100_000  # phase 8's append onto the 404M base, as the benchmark's
 N_CORRECT = 10_000
 N_PARTS, N_PAIR, N_GLOO, N_GLOO_KMERS = 4, 1_000_000, 50_000, 20_000  # phase 11
 DEEP_K = 11  # the deepest prefix cache phase 10 builds
@@ -1514,7 +1520,8 @@ def phase_stream(torch, np, dev, reads, lengths, idx, ckpt):
 
 
 def phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt):
-    """Phase 8: load the 404M checkpoint, extend it by the last 1M reads."""
+    """Phase 8: load the 404M checkpoint, extend it by the last 1M reads;
+    append ``APPEND`` of them onto the base at the automatic radix."""
     from rust_msbwt_tpu_torch.models.dynamic import DynamicBWT
     from rust_msbwt_tpu_torch.ops import bcr, lf
     from rust_msbwt_tpu_torch.ops.rle import decode_symbols_device
@@ -1583,6 +1590,8 @@ def phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt):
         + " (encode_reads: the host packing insert_strings does; "
         "terminator_positions includes the host stage view of 1M reads; "
         "extend_build includes its own terminator walk)")
+    append = phase_append(torch, dev, reads[last][:APPEND], lengths[last][:APPEND], base,
+                          bpacked, n_strings)
     # the terminator walk through the kernel and its plain twin, on its inputs
     (args,) = walk_args
     del ext, rle, base, tp, walk_args
@@ -1592,7 +1601,52 @@ def phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt):
     walk["loop_steps"] = args[6]
     log(f"[lf] terminator walk: kernel {walk['ms'] / args[6]:.4f} ms a step, plain "
         f"{walk['plain_ms'] / args[6]:.3f} ms a step")
-    return launches, walk
+    return launches, walk, append
+
+
+def phase_append(torch, dev, reads, lengths, base, bpacked, n_strings):
+    """Phase 8's append: ``reads`` onto ``base`` (its index and bound
+    given, as the benchmark's append), at the automatic radix, which must be
+    2, with its launches counted (counts reset just before) and its last
+    pair's ``lf_pair`` inputs kept; == the forced radix-1 append, BWT and
+    table; then the kept pair held against the twin (``hold_pair``).
+    Returns the launches and the hold."""
+    from rust_msbwt_tpu_torch.ops import bcr
+
+    N = reads.shape[0]
+    n_cap = int(base.shape[0]) + int(lengths.sum()) + N
+    radix = bcr.build_radix(n_cap, N)
+    check(radix == 2, f"an append of {N} reads onto {base.shape[0]} symbols takes radix {radix}")
+
+    def append():
+        idx, packed = bcr.build_msbwt_with_index(reads, lengths, True, base, n_strings,
+                                                 READ_LEN + 1, device=dev, base_index=bpacked)
+        return idx.bwt, packed.table
+
+    # --- the append at the automatic radix: counts reset just before ---
+    torch.cuda.synchronize()
+    reset_counts()
+    with capture(bcr, "lf_pair", keep=lambda j, *a: j == READ_LEN) as kept:
+        got = append()
+    torch.cuda.synchronize()
+    launches = path_counts()
+    # --- end of the append ---
+    log(f"[append] {N} reads onto the {base.shape[0]}-symbol base ({n_cap / N:.0f} buffer "
+        f"symbols a new read, radix {radix}): merge kernel launches "
+        f"{launches['merge_insert']}, " + lf_line(launches))
+    check(launches["merge_insert"] == READ_LEN // 2 + 1 and launches["lf_pair"] == READ_LEN // 2
+          and launches["lf_stage"] == 0, f"the append: {launches['merge_insert']} passes, "
+          + lf_line(launches))
+    with radix_env(1):
+        want = append()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "the append at radix 2 != the forced radix-1 append")
+    log("[append] BWT and table identical to the forced radix-1 append")
+    del got, want
+    check(len(kept) == 1, f"the append kept {len(kept)} column pairs")
+    pair = hold_pair(torch, f"the {N}-read append onto {base.shape[0]} symbols (its last pair)",
+                     kept.pop())
+    return {"launches": launches, "pair": pair}
 
 
 def phase_recovery(torch, np, dev, reads, idx, packed, kmers, counts):
@@ -2178,7 +2232,7 @@ def phase_long(torch, np, dev):
         ext_s = time.perf_counter() - t0
         launches_ext = path_counts()
         # --- end of the long-read extend ---
-    radix = bcr.build_radix(n, LONG_READS - LONG_BASE, LONG_BASE * (LONG_LEN + 1))
+    radix = bcr.build_radix(n, LONG_READS - LONG_BASE)
     check(ext.n == n and torch.equal(ext.bwt[: ext.n], i1.bwt[: i1.n]),
           "long-read load + extend != the one-shot BWT")
     log(f"[long] load {LONG_BASE} reads' BWT from RLE bytes + extend by "
@@ -2363,7 +2417,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as d:
         ckpt = os.path.join(d, "stream_ckpt.npy")
         stream = phase_stream(torch, np, dev, reads, lengths, idx, ckpt)
-        load_extend, walk = phase_load_extend(torch, np, dev, reads, lengths, idx, ckpt)
+        load_extend, walk, append = phase_load_extend(torch, np, dev, reads, lengths, idx,
+                                                      ckpt)
     recovery, walks, locate_ranges = phase_recovery(torch, np, dev, reads, idx, packed, kmers,
                                                     counts)
     with tempfile.TemporaryDirectory() as d:
@@ -2387,6 +2442,7 @@ def main(argv=None) -> int:
     query_holds.update({"1515m_pair_6^9": big_pair, "recovery_locate": locate_ranges})
 
     paths = {"": main_path, "_stream": stream, "_load_extend": load_extend,
+             "_append": append["launches"],
              "_recovery": recovery, "_query": launches_query, "_correct": correct,
              "_merge_parts": parts,
              "_distributed": launches_dist, "_long_radix1": long_r1,
@@ -2450,7 +2506,7 @@ def main(argv=None) -> int:
         # its main path is the long-read build at radix 2 (the rule's pick)
         "launches": long_r2["lf_pair"],
         **launches_of("lf_pair", skip=("", "_recovery", "_correct", "_distributed")),
-        "max_abs_err": long_pair["max_abs_err"],
+        "max_abs_err": max(long_pair["max_abs_err"], append["pair"]["max_abs_err"]),
         "ms": long_pair["ms"],
         "plain_ms": long_pair["plain_ms"],
         "bound_ms": long_pair["bound_ms"],
@@ -2469,6 +2525,10 @@ def main(argv=None) -> int:
         "parent_events": long_pair.get("parent_events"),
         "events_a_column": {f"radix{r}": e["events_a_column"]
                             for r, e in long_pair["events"].items()},
+        # the benchmark's append: 100k x 100 bp onto 404M, its last pair
+        "append": {k: append["pair"].get(k) for k in ("ms", "plain_ms", "bound_ms", "rows",
+                                                       "device_share", "parent_ms", "turn_ms")}
+        | {"device_ms": append["pair"]["split"]["device_ms"]},
     }, {
         "name": "lf_walk",
         "route": "cuda",

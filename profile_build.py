@@ -51,7 +51,11 @@ timed. Then:
    of the round's device time spent in sort kernels.
 4. Unless ``--no-profile`` (alone with ``--sweep-only``): the radix sweep.
    Read sets of ~500M symbols at L = 250 (2M reads), 500 (1M) and 1,000
-   (500k) from the same genome; on each, the device stage loop at radix 1
+   (500k) from the same genome, and appends of 100k x 100 bp reads onto
+   bases of 0.1M, 0.4M, 1M and 4M 100 bp reads (each base built on the card
+   first, its index and bound given as the benchmark's append gives them:
+   about 202, 505, 1,111 and 4,141 buffer symbols a new read, with the
+   radix ``build_radix`` picks there); on each, the device stage loop at radix 1
    and radix 2 (``MSBWT_TPU_RADIX``) in turns for three rounds, the order
    flipped each round, and the median of the per-round ratios; then one
    profiled loop per radix (device time, idle share, device events a
@@ -96,6 +100,18 @@ def wall_time(fn) -> float:
     return timed(fn)[0]
 
 
+def device_events(prof) -> list:
+    """``prof.key_averages()``'s device-side events (kernels, copies, fills):
+    not the CPU ops that launched them, nor the device-side copies of the
+    port's ``msbwt.*`` spans, which carry the same time again."""
+    from rust_msbwt_tpu_torch.utils.profiling import device_us
+
+    return [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("msbwt.")]
+
+
 def profiled(torch, fn, label: str, top: int, groups: dict | None = None,
              columns: int = 0) -> dict:
     """Run ``fn()`` once unprofiled (its wall time: the profiler's CPU
@@ -111,10 +127,7 @@ def profiled(torch, fn, label: str, top: int, groups: dict | None = None,
     wall = wall_time(fn)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_wall = wall_time(fn)
-    # device-side events only (kernels, copies, fills): the CPU ops that
-    # launched them carry the same time again
-    evts = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+    evts = device_events(prof)
     evts.sort(key=device_us, reverse=True)
     dev_s = sum(device_us(e) for e in evts) * 1e-6
     n_events = sum(e.count for e in evts)
@@ -312,31 +325,36 @@ def profile_merge_round(torch, np, dev, reads, lengths, top: int) -> dict:
     return out
 
 
-SWEEP = ((250, 2_000_000), (500, 1_000_000), (1_000, 500_000))  # ~500M symbols each
+# (L, new reads, base reads): one-shot builds of ~500M symbols, then 100k x
+# 100 bp appends onto bases of 100 bp reads
+SWEEP = ((250, 2_000_000, 0), (500, 1_000_000, 0), (1_000, 500_000, 0),
+         *((100, 100_000, b) for b in (100_000, 400_000, 1_000_000, 4_000_000)))
 SWEEP_ROUNDS = 3
 # radix 2's column pairs among the device kernels: lf_pair's eight kernels
 # (csrc/lf.cu pair_*_kernel) and its memset
 PAIR_KERNELS = {"lf_pair": lambda k: "pair_" in k}
 
 
-def last_pair(torch, dev, p, L: int):
-    """One device stage loop at radix 2 on ``p``, keeping the last column
-    pair's ``lf_pair`` inputs (columns L and L + 1, or L - 1 and L for odd
-    L); ``chip_smoke.pair_split`` then profiles ``lf_pair`` on them."""
+def last_pair(torch, dev, p, L: int, **onto):
+    """One device stage loop at radix 2 on ``p`` (onto the base ``onto``
+    gives ``_build_device``, if any), keeping the last column pair's
+    ``lf_pair`` inputs (columns L and L + 1, or L - 1 and L for odd L);
+    ``chip_smoke.pair_split`` then profiles ``lf_pair`` on them."""
     from chip_smoke import capture, radix_env
     from rust_msbwt_tpu_torch.ops import bcr
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
 
     last = L - (L % 2)
     with radix_env(2), capture(bcr, "lf_pair", keep=lambda j, *a: j == last) as kept:
-        bcr._build_device(p, dev, merge_insert)
+        bcr._build_device(p, dev, merge_insert, **onto)
     return kept.pop()
 
 
 def radix_sweep(torch, np, dev, top: int) -> list:
-    """Step 4: the device stage loop at radix 1 and radix 2 on read sets of
-    ~500M symbols at L = 250, 500 and 1,000 from the flagship genome, one
-    host prep each. ``SWEEP_ROUNDS`` rounds in turns, the order flipped each
+    """Step 4: the device stage loop at radix 1 and radix 2 on each shape of
+    ``SWEEP`` from the flagship genome (a one-shot build, or an append onto
+    a base built first), one host prep each, with the radix the rule
+    picks. ``SWEEP_ROUNDS`` rounds in turns, the order flipped each
     round; the median of the per-round ratios (radix 1 / radix 2), then one
     profiled loop per radix (device time, idle share, events a column, at
     radix 2 ``lf_pair``'s kernels timed apart) and ``lf_pair`` alone on the
@@ -345,31 +363,43 @@ def radix_sweep(torch, np, dev, top: int) -> list:
 
     from chip_smoke import genome_reads, loop_pair, pair_bytes, pair_split, pair_turns, radix_env
     from rust_msbwt_tpu_torch.utils.profiling import DEFAULT_HBM_BW
-    from rust_msbwt_tpu_torch.ops.bcr import _build_device, _prepare_build
+    from rust_msbwt_tpu_torch.ops.bcr import (_build_device, _prepare_build,
+                                              build_msbwt_with_index, build_radix)
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
 
     rows = []
-    for L, n_reads in SWEEP:
-        reads, lengths = genome_reads(np, n_reads, L, 0x5EED + L)
-        p = _prepare_build(reads, lengths, True)
+    for L, n_reads, n_base in SWEEP:
+        reads, lengths = genome_reads(np, n_base + n_reads, L, 0x5EED + L + n_base)
+        onto, n0 = {}, 0
+        if n_base:
+            base, bpacked = build_msbwt_with_index(reads[:n_base], lengths[:n_base],
+                                                   device=dev)
+            n0 = base.n
+            onto = {"base": base.bwt[:n0], "base_index": bpacked, "base_rot_max": L + 1}
+            del base
+        p = _prepare_build(reads[n_base:], lengths[n_base:], True, n0, n_base)
         del reads, lengths
+
+        def loop():
+            return _build_device(p, dev, merge_insert, **onto)
+
         loops = {1: [], 2: []}
         for rnd in range(SWEEP_ROUNDS):
             for radix in ((1, 2) if rnd % 2 == 0 else (2, 1)):
                 with radix_env(radix):
-                    loops[radix].append(wall_time(lambda: _build_device(p, dev, merge_insert)))
+                    loops[radix].append(wall_time(loop))
         ratios = [a / b for a, b in zip(loops[1], loops[2])]
-        row = {"L": L, "reads": n_reads, "symbols": p["n_cap"], "loop_s": loops,
+        row = {"L": L, "reads": n_reads, "base_reads": n_base, "symbols": p["n_cap"],
+               "rule_radix": build_radix(p["n_cap"], n_reads), "loop_s": loops,
                "ratios": ratios, "median_ratio": median(ratios)}
         for radix in (1, 2):
             with radix_env(radix):
                 row[f"profile_radix{radix}"] = profiled(
-                    torch, lambda: _build_device(p, dev, merge_insert),
-                    f"L={L} radix {radix}", top, PAIR_KERNELS if radix == 2 else None,
-                    columns=L)
-        args = last_pair(torch, dev, p, L)
-        del p
-        label = f"L={L}, columns {args[0]} and {args[0] + 1}"
+                    torch, loop, f"L={L} onto {n_base} reads, radix {radix}", top,
+                    PAIR_KERNELS if radix == 2 else None, columns=L)
+        args = last_pair(torch, dev, p, L, **onto)
+        del p, onto
+        label = f"L={L} onto {n_base} reads, columns {args[0]} and {args[0] + 1}"
         pair = loop_pair(dev)
         split = row["pair_a_call"] = pair_split(torch, label, pair, args)
         bound_bytes, rows_read = pair_bytes(torch, args)
@@ -381,7 +411,9 @@ def radix_sweep(torch, np, dev, top: int) -> list:
             f"{rows_read} distinct rows; {bound_ms / split['device_ms']:.1%} of it)")
         row["pair_parent"] = pair_turns(torch, label, pair, args)
         del args
-        log(f"[sweep] L={L} ({n_reads} reads, {row['symbols']} symbols): device loop radix 1 "
+        log(f"[sweep] L={L} ({n_reads} reads onto {n_base}, {row['symbols']} symbols, "
+            f"{row['symbols'] / n_reads:.0f} a new read, the rule's radix "
+            f"{row['rule_radix']}): device loop radix 1 "
             + " / ".join(f"{t:.4f}" for t in loops[1]) + " s, radix 2 "
             + " / ".join(f"{t:.4f}" for t in loops[2]) + " s; per-round ratios "
             + " / ".join(f"{r:.3f}" for r in ratios)

@@ -42,8 +42,10 @@ radix 2 (``ops.lf.lf_pair``, the port of ``_pallas_stage_step2``: one
 call of five device events a pair on the card) ranks two columns from one
 table and inserts both through one pass of 2N slots, which halves the passes over the buffer
 at the cost of N-sized work a pair. It pays only where N is small next to
-the buffer, i.e. for long reads: the JAX package's rule picks it for a
-batch of mean length 999 and up.
+the buffer: long reads, or a batch appended onto a large base. The rule
+picks it from 1,000 buffer symbols a new read, the base counted; the JAX
+package's rule leaves the base out, so there an append of short reads
+stays at radix 1.
 
 The JAX package's XLA scatter engine ``bcr_insert_core`` has no counterpart
 of its own: the build functions' ``merge=`` takes the plain pass
@@ -334,20 +336,23 @@ def pair_buckets(buckets: list[tuple[int, int, int]], L: int) -> list[tuple[int,
     return out
 
 
-def build_radix(n_cap: int | None = None, n_reads: int | None = None,
-                n_base: int = 0) -> int:
-    """Columns one merge pass consumes (1 or 2), by the JAX package's rule:
-    2 where the new batch's mean length + 1, ``(n_cap - n_base) /
-    n_reads``, is at least 1,000 (a long-read batch: the pass saved is
-    capacity-sized, a pair's extra work read-sized), else 1; an unknown
-    shape stays at 1. ``MSBWT_TPU_RADIX=1|2`` forces either.
+def build_radix(n_cap: int | None = None, n_reads: int | None = None) -> int:
+    """Columns one merge pass consumes (1 or 2): 2 where the buffer holds at
+    least 1,000 symbols a new read, ``n_cap / n_reads >= 1000`` with a
+    base's symbols counted in ``n_cap`` (the pass saved streams the whole
+    buffer, a pair's extra work is read-sized), else 1; an unknown shape
+    stays at 1. ``MSBWT_TPU_RADIX=1|2`` forces either. With no base this is
+    the JAX package's rule (the new batch's mean length + 1 from 1,000 on);
+    onto a base the JAX rule subtracts the base's symbols and keeps an
+    append of short reads at radix 1.
 
-    The rule holds on the H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
-    with ``lf_pair`` the radix-2 device loop over 500.5M symbols of 1,000
-    bp reads ran 1.372-1.408x as fast as radix 1 in ``chip_smoke.py``
-    phase 12a's three turns and 1.314-1.402x in ``profile_build.py``'s
-    sweep, every turn a win; at 500 bp 1.153-1.270x, at 250 bp
-    0.941-1.039x (the rule keeps radix 1 below 999 bp).
+    On the H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md) the radix-2
+    device loop over a 500M-symbol one-shot build ran 1.42-1.51x as fast
+    as radix 1 at 1,000 bp reads, 1.30-1.33x at 500 bp and 1.10-1.17x at
+    250 bp, with ``lf_pair`` at 0.13-0.14 ms a pair at 1,000 bp. An append
+    of 100k x 100 bp reads ran 1.49x as fast at radix 2 onto a 404M-symbol
+    base (4,141 symbols a new read) and 1.25x onto 101M (1,111), the whole
+    entry point timed.
 
     >>> build_radix(505_000_000, 5_000_000)   # 100 bp short reads
     1
@@ -355,7 +360,9 @@ def build_radix(n_cap: int | None = None, n_reads: int | None = None,
     1
     >>> build_radix(500_500_000, 500_000)     # 1,000 bp long reads
     2
-    >>> build_radix(505_101_000, 1_000, n_base=505_000_000)  # extend, L = 100
+    >>> build_radix(505_101_000, 1_000)       # 100 bp onto a 505M base
+    2
+    >>> build_radix(909_000, 1_000)           # 100 bp onto an 808k base
     1
     >>> build_radix()                         # unknown shape: stay at 1
     1
@@ -363,7 +370,7 @@ def build_radix(n_cap: int | None = None, n_reads: int | None = None,
     v = os.environ.get("MSBWT_TPU_RADIX", "auto")
     if v in ("1", "2"):
         return int(v)
-    if n_cap and n_reads and (n_cap - n_base) / n_reads >= 1000:
+    if n_cap and n_reads and n_cap / n_reads >= 1000:
         return 2
     return 1
 
@@ -440,7 +447,7 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
     with annotate("msbwt.stage1"):
         q1 = _stage1_slots(p, cols, lengths, base, base_index, base_rot_max, merge)
     with annotate("msbwt.buffers"):
-        radix = build_radix(n_cap, N, n0)
+        radix = build_radix(n_cap, N)
         buckets = bucket_schedule(n0, N, L, n_cap, BIN)
         if radix == 2:
             buckets = pair_buckets(buckets, L)

@@ -3,8 +3,9 @@ PyTorch twin on the same CUDA tensors — one pass, a build, an extend build
 onto a non-empty base, and a streamed build — the query tiers (pair index,
 run tier, a chunked deep prefix cache, ``RleBWT``'s policy), the H-M and
 doubling merges and two gloo ranks sharing the card, each against the same
-functions on the CPU; radix-2 builds (kernel == radix 1 == plain) and one
-radix-2 step against the CPU's; ``lf_pair`` (the radix-2 column pair)
+functions on the CPU; radix-2 builds (kernel == radix 1 == plain), an
+append onto a large base at the radix the rule picks (2) against radix 1,
+and one radix-2 step against the CPU's; ``lf_pair`` (the radix-2 column pair)
 against its plain twin with slots on tile edges, full tiles, empty tiles,
 tiles at the edges of their buckets, clustered and many overfull tiles,
 N = 1, no read active in the second column, slots past 2^30 and 1.1M
@@ -1187,6 +1188,37 @@ def test_build_counts_lf_stage_launches(cuda, monkeypatch, radix):
     assert lf_walk_launches() == walks
     idx_c, packed_c = build_msbwt_with_index(reads, lengths, device="cpu")
     assert torch.equal(idx.bwt.cpu(), idx_c.bwt) and torch.equal(packed.table.cpu(), packed_c.table)
+
+
+def test_unforced_append_takes_radix2(cuda, monkeypatch):
+    """A 2k x 100 bp append onto a 200k x 100 bp base (10,201 buffer
+    symbols a new read) takes radix 2 by itself: stage 1's pass and 50
+    column pairs, so 51 merge passes, 50 ``lf_pair`` calls and no
+    ``lf_stage``; its BWT and table equal the forced radix-1 append's (100
+    ``lf_stage`` launches, 101 passes)."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_pair, lf_stage
+
+    r = np.random.default_rng(18)
+    base_reads = r.integers(1, 6, (200_000, 100)).astype(np.uint8)
+    reads = r.integers(1, 6, (2_000, 100)).astype(np.uint8)
+    lengths = np.full(2_000, 100, np.int32)
+    monkeypatch.delenv("MSBWT_TPU_RADIX", raising=False)
+    base, base_packed = build_msbwt_with_index(base_reads, np.full(200_000, 100, np.int32),
+                                               device=cuda)
+    out = {}
+    for radix in (None, "1"):
+        if radix:
+            monkeypatch.setenv("MSBWT_TPU_RADIX", radix)
+        before = (merge_insert.launches, lf_pair.launches, lf_stage.launches)
+        idx, packed = build_msbwt_with_index(reads, lengths, True, base.bwt[: base.n],
+                                             200_000, 101, device=cuda,
+                                             base_index=base_packed)
+        torch.cuda.synchronize(cuda)
+        out[radix] = (idx.bwt, packed.table, merge_insert.launches - before[0],
+                      lf_pair.launches - before[1], lf_stage.launches - before[2])
+    assert out[None][2:] == (51, 50, 0)
+    assert out["1"][2:] == (101, 0, 100)
+    assert torch.equal(out[None][0], out["1"][0]) and torch.equal(out[None][1], out["1"][1])
 
 
 @pytest.mark.parametrize("sorted_insert", [True, False])

@@ -10,7 +10,9 @@ the stage loop's ``lf_pair``) against ``_pallas_stage_step2`` on uniform, ragged
 short reads (a pair with no read active in its second column), sorted and
 unsorted; ``lf_pair_plain`` on the edge cases of ``tests/test_torch_gpu.py``
 and the slot math above 2^30 against numpy argsort oracles;
-``build_radix`` against the JAX package's and the radix-2 bucket schedule.
+``build_radix`` and the JAX package's each against its own rule, an
+unforced extend onto a large base at radix 2, and the radix-2 bucket
+schedule.
 Every comparison is bit-exact (tolerance 0: every output is an integer).
 """
 
@@ -260,31 +262,76 @@ def test_pair_slots_above_2_30_match_oracle(seed):
         assert int(f1[i]) == f, i
 
 
-# the JAX doctest's five shapes (100 bp, 500 bp, 1,000 bp, an extend of 100
-# bp reads onto a 505M base, an unknown shape) and the rule's edge (999 bp
-# gives 2, 998 bp gives 1), each with the radix the rule picks
-RADIX_SHAPES = [((505_000_000, 5_000_000, 0), 1), ((500_500_000, 1_000_000, 0), 1),
-                ((500_500_000, 500_000, 0), 2), ((505_101_000, 1_000, 505_000_000), 1),
-                ((None, None, 0), 1), ((1000 * 1000, 1000, 0), 2),
-                ((999 * 1000, 1000, 0), 1)]
+# (n_cap, n_reads, n_base) and the radix each rule picks, the port's and the
+# JAX package's. The JAX doctest's five shapes (100 bp, 500 bp, 1,000 bp, an
+# extend of 100 bp reads onto a 505M base, an unknown shape) and the JAX
+# rule's edge (999 bp gives 2, 998 bp gives 1): the two rules differ on the
+# extend alone, where the port counts the base. Then shapes of the port's
+# rule onto a base: the benchmark's append (100k x 100 bp onto 4M reads),
+# a streamed 100 bp batch below its edge, and its edge, 1,000 buffer symbols
+# a new read (2) and one symbol fewer (1).
+RADIX_SHAPES = [((505_000_000, 5_000_000, 0), 1, 1), ((500_500_000, 1_000_000, 0), 1, 1),
+                ((500_500_000, 500_000, 0), 2, 2), ((505_101_000, 1_000, 505_000_000), 2, 1),
+                ((None, None, 0), 1, 1), ((1000 * 1000, 1000, 0), 2, 2),
+                ((999 * 1000, 1000, 0), 1, 1),
+                ((414_100_000, 100_000, 404_000_000), 2, 1), ((909_000, 1_000, 808_000), 1, 1),
+                ((1000 * 1000, 1000, 900_000), 2, 1), ((1000 * 1000 - 1, 1000, 900_000), 1, 1)]
 
 
 @pytest.mark.parametrize("env", [None, "1", "2", "auto", "3"])
-@pytest.mark.parametrize("shape,rule", RADIX_SHAPES,
+@pytest.mark.parametrize("shape,port_rule,jax_rule", RADIX_SHAPES,
                          ids=["100bp", "500bp", "1000bp", "extend", "unknown", "999bp",
-                              "998bp"])
-def test_build_radix(shape, rule, env, monkeypatch):
-    """The port's radix choice == the JAX package's: unforced (and under any
-    value but 1 and 2) the JAX rule, mean length + 1 of the new batch from
-    1,000 on; ``MSBWT_TPU_RADIX=1|2`` forces either at every shape."""
+                              "998bp", "append", "streamed", "edge", "below_edge"])
+def test_build_radix(shape, port_rule, jax_rule, env, monkeypatch):
+    """The port's radix choice and the JAX package's, each against its own
+    rule: unforced (and under any value but 1 and 2) the port takes radix 2
+    from 1,000 buffer symbols a new read with the base counted, the JAX
+    package from a new batch of mean length + 1 of 1,000, the base left
+    out; ``MSBWT_TPU_RADIX=1|2`` forces either in both, at every shape."""
     if env is None:
         monkeypatch.delenv("MSBWT_TPU_RADIX", raising=False)
     else:
         monkeypatch.setenv("MSBWT_TPU_RADIX", env)
-    want = {"1": 1, "2": 2}.get(env, rule)
+    forced = {"1": 1, "2": 2}.get(env)
     n_cap, n_reads, n_base = shape
-    assert bcr.build_radix(n_cap, n_reads, n_base) == want
-    assert jbcr.build_radix(n_cap, n_reads, n_base) == want
+    assert bcr.build_radix(n_cap, n_reads) == (forced or port_rule)
+    assert jbcr.build_radix(n_cap, n_reads, n_base) == (forced or jax_rule)
+
+
+@pytest.mark.parametrize("sorted_insert", [True, False])
+def test_unforced_extend_onto_large_base_takes_radix2(sorted_insert, monkeypatch):
+    """An extend whose buffer holds 1,000 symbols and more a new read (one
+    12 bp read onto 40 reads of 30 bp: 1,253 symbols) takes radix 2 by
+    itself, one ``lf_pair`` call a column pair, and gives the bytes of the
+    forced radix-1 extend and of the JAX package's."""
+    r = np.random.default_rng(18 + sorted_insert)
+    base_l = [r.integers(1, 6, 30).astype(np.uint8) for _ in range(40)]
+    new_l = [r.integers(1, 6, 12).astype(np.uint8)]
+    base, _ = _port(base_l, True, 1, monkeypatch)
+    n_cap = base.size + 13
+    monkeypatch.delenv("MSBWT_TPU_RADIX", raising=False)
+    assert bcr.build_radix(n_cap, 1) == 2
+    assert jbcr.build_radix(n_cap, 1, base.size) == 1
+    pairs = []
+
+    def counting(*a, **k):
+        pairs.append(1)
+        return lf.lf_pair(*a, **k)
+
+    monkeypatch.setattr(bcr, "lf_pair", counting)
+    reads, lengths = bcr.encode_reads(new_l)
+    idx, packed = bcr.build_msbwt_with_index(reads, lengths, sorted_insert, base=base,
+                                             base_string_count=40, device="cpu")
+    assert idx.n == n_cap and len(pairs) == 12 // 2
+    got, tab = idx.bwt[: idx.n].numpy(), packed.table.numpy()
+    ref, ref_tab = _port(new_l, sorted_insert, 1, monkeypatch, base=base,
+                         base_string_count=40)
+    want = jbcr.build_msbwt(reads, lengths, sorted_insert, base=base,
+                            base_string_count=40, engine="xla")
+    assert np.array_equal(got, ref) and np.array_equal(tab, ref_tab)
+    assert np.array_equal(got, np.asarray(want))
+    if sorted_insert:
+        assert convert_itos(got) == naive_bwt([convert_itos(s) for s in base_l + new_l])
 
 
 def test_bucket_growth_env(monkeypatch):

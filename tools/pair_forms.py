@@ -113,13 +113,14 @@ def form_call(lib, form: int):
 
 
 def shapes(torch, np, dev) -> dict:
-    """``{name: lf_pair args}``: the last column pair of each sweep set."""
+    """``{name: lf_pair args}``: the last column pair of each one-shot sweep
+    set."""
     from chip_smoke import genome_reads
     from profile_build import SWEEP, last_pair
     from rust_msbwt_tpu_torch.ops.bcr import _prepare_build
 
     out = {}
-    for L, n_reads in SWEEP:
+    for L, n_reads in [(L, n) for L, n, n_base in SWEEP if not n_base]:
         t0 = time.perf_counter()
         reads, lengths = genome_reads(np, n_reads, L, 0x5EED + L)
         p = _prepare_build(reads, lengths, True)
