@@ -56,6 +56,7 @@ device.
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -118,13 +119,20 @@ def sort_reads(reads: np.ndarray, lengths: np.ndarray) -> tuple[np.ndarray, np.n
     return reads[order], lengths[order]
 
 
+_VIEW_BLOCK = 1 << 22  # view entries a block of columns gathers: bounds the temporaries
+
+
 def reads_to_cols(reads: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     """Column-major stage view: ``cols[j, i] = reads[i, lengths[i] - j]`` for
     ``1 <= j <= lengths[i]``, else 0 (``[L+2, N]`` uint8) — every stage reads
-    one contiguous row.
+    one contiguous row. Ragged reads are gathered a block of columns at a
+    time, so the temporaries stay near ``_VIEW_BLOCK`` entries whatever the
+    shape (the native ``utils.native.reads_to_cols_native`` is the fast path).
 
     >>> reads_to_cols(np.array([[1, 2, 3]], np.uint8), np.array([3])).T.tolist()
     [[0, 3, 2, 1, 0]]
+    >>> reads_to_cols(np.array([[1, 2, 3], [4, 0, 0]], np.uint8), np.array([3, 1])).T.tolist()
+    [[0, 3, 2, 1, 0], [0, 4, 0, 0, 0]]
     """
     N, L = reads.shape
     cols = np.zeros((L + 2, N), dtype=np.uint8)
@@ -132,12 +140,16 @@ def reads_to_cols(reads: np.ndarray, lengths: np.ndarray) -> np.ndarray:
         return cols
     if np.all(lengths == L):
         cols[1: L + 1] = reads[:, ::-1].T
-    else:
-        js = np.arange(L + 2)
-        idx = lengths[None, :] - js[:, None]          # [L+2, N]
-        valid = (idx >= 0) & (js[:, None] >= 1)
+        return cols
+    lengths = np.asarray(lengths, dtype=np.int64)
+    rows = np.arange(N)[None, :]
+    step = max(1, _VIEW_BLOCK // N)
+    for a in range(1, L + 1, step):  # columns 0 and L + 1 stay 0
+        js = np.arange(a, min(a + step, L + 1))[:, None]
+        idx = lengths[None, :] - js               # [block, N]
+        valid = idx >= 0
         np.clip(idx, 0, L - 1, out=idx)
-        cols = np.where(valid, reads.T[idx, np.arange(N)[None, :]], 0).astype(np.uint8)
+        cols[a: a + js.shape[0]] = np.where(valid, reads[rows, idx], 0)
     return cols
 
 
@@ -429,6 +441,12 @@ def _stage1_slots(p: dict, cols, lengths, base, base_index, base_rot_max, merge)
     return base_pos + ar
 
 
+# Symbols the builds' merge passes stream: each pass reads and writes its
+# bucket's whole capacity, and a build adds its passes' capacities once,
+# after its sync. Read as ``.launches``, as the launch counters are.
+merge_streamed = SimpleNamespace(launches=0)
+
+
 def _build_device(p: dict, device, merge, base=None, base_index=None,
                   base_rot_max=None):
     """Run stage 1 and the bucketed stage loop on ``device``, onto ``base``
@@ -437,7 +455,8 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
     picks 2, two. Returns the final buffer (uint8 [aligned n_cap], PAD past
     n_cap), its packed table (int32 [aligned n_cap / 128 + 1, 32]) and the
     symbol counts. Every ``lf_stage`` and ``lf_pair`` call gets the build's
-    own scratch, so builds on two streams share no accumulator."""
+    own scratch, so builds on two streams share no accumulator. A build
+    adds the symbols its passes stream to ``merge_streamed`` once."""
     N, L, n0, n_cap = p["N"], p["L"], p["n0"], p["n_cap"]
     with annotate("msbwt.upload"):
         cols = torch.from_numpy(p["cols"]).to(device)
@@ -464,7 +483,11 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
             # six compare-sums: no [n0]-sized int64 temporary
             counts = torch.stack([(base == s).sum(dtype=_I32) for s in range(VC_LEN)])
 
+    streamed = 0
+
     def run_pass(src, cap, q, v, active):
+        nonlocal streamed
+        streamed += cap
         dst = 1 - src
         _, _, m = merge(bufs[src][:cap], q, v, active, out=bufs[dst][:cap],
                         table=table[: cap // BIN + 1])
@@ -499,6 +522,7 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
         n_valid = int(n_valid)
     if n_valid != n_cap:
         raise RuntimeError(f"build inserted {n_valid} symbols, expected {n_cap}")
+    merge_streamed.launches += streamed
     return bufs[cur], table, counts
 
 
