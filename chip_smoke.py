@@ -159,8 +159,17 @@ Phases:
      packed tier's; each tier's peak memory;
      ``kmer_counts_pair`` held against its twin on the card-budget engine's
      pair table, 6^9 cache and 1M k-mers (positions past 2^30), exact, timed
+ 12f. column groups at the benchmark's long-read shape: ``ecoli-ont50x``'s
+     15,472 read lengths over random bases built one-shot at the rule's
+     radix (2; counts reset just before): its passes, pairs and groups those
+     of ``group_schedule``, its BWT == the build with the pairs alone; the
+     group holding column 30,000 held against ``lf_group_plain`` (timed
+     against its byte bound, its device time by kernel) and against the
+     pairs it replaces, replayed from the same buffer to the same buffer
+     and table (the pairs' LF steps, their passes, the group's one)
  13. one JSON line of kernel results (``merge_insert``, ``lf_stage``,
-     ``lf_pair``, ``lf_walk``, ``kmer_ranges_packed``, ``kmer_counts_pair``),
+     ``lf_pair``, ``lf_group``, ``lf_walk``, ``kmer_ranges_packed``,
+     ``kmer_counts_pair``),
      then
      ``{"ok": true, "device": ...}``
 
@@ -187,6 +196,7 @@ timed as the stage loop calls it, with one scratch for every call
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -203,6 +213,7 @@ N_PARTS, N_PAIR, N_GLOO, N_GLOO_KMERS = 4, 1_000_000, 50_000, 20_000  # phase 11
 DEEP_K = 11  # the deepest prefix cache phase 10 builds
 LONG_READS, LONG_LEN, LONG_SMALL, LONG_BASE = 500_000, 1_000, 20_000, 400_000  # phase 12
 BIG_READS = 15_000_000  # phase 12e: 15M x 100 bp, 1.515G symbols
+GROUP_COL = 30_000  # phase 12f: the column whose group is held, ~1,845 of 15,472 reads active
 LF_COL = 90  # phase 6b: the late column whose lf_stage inputs are kept
 STREAM_COLS, STREAM_REPS = (50, LF_COL), 32  # phase 6c: columns on two streams, launches a stream
 HOST_ROUNDS, HOST_CALLS = 8, 1000  # stage_split: the host's time a call of lf_stage
@@ -283,11 +294,12 @@ def cuda_ms(fn, reps):
 
 def wrappers() -> tuple:
     """Every kernel wrapper: the merge kernel, ``lf_stage``, ``lf_pair``,
-    the four ``lf_walk`` walks and the two query kernels."""
+    ``lf_group``, the four ``lf_walk`` walks and the two query kernels."""
     from rust_msbwt_tpu_torch.ops import lf, query
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
 
-    return (merge_insert, lf.lf_stage, lf.lf_pair, *lf.LF_WALKS, *query.QUERY_KERNELS)
+    return (merge_insert, lf.lf_stage, lf.lf_pair, lf.lf_group, *lf.LF_WALKS,
+            *query.QUERY_KERNELS)
 
 
 def reset_counts() -> None:
@@ -353,8 +365,8 @@ def capture(module, name, keep=lambda *a: True, clone=True):
 @contextlib.contextmanager
 def plain_lf():
     """The build's LF step through the plain twins inside the block:
-    ``ops.bcr``'s ``lf_stage`` and ``lf_pair`` (their kernels' scratch
-    dropped), ``lf_walk_cyclic`` and ``lf_walk_lengths``."""
+    ``ops.bcr``'s ``lf_stage``, ``lf_pair`` (their kernels' scratch
+    dropped) and ``lf_group``, ``lf_walk_cyclic`` and ``lf_walk_lengths``."""
     from rust_msbwt_tpu_torch.ops import bcr, lf
 
     def stage_plain(*args, scratch=None):
@@ -363,9 +375,13 @@ def plain_lf():
     def pair_plain(*args, scratch=None):
         return lf.lf_pair_plain(*args)
 
+    def group_plain(*args, order=None):
+        return lf.lf_group_plain(*args, order)
+
     with contextlib.ExitStack() as stack:
         stack.enter_context(swapped(bcr, "lf_stage", stage_plain))
         stack.enter_context(swapped(bcr, "lf_pair", pair_plain))
+        stack.enter_context(swapped(bcr, "lf_group", group_plain))
         for name in ("lf_walk_cyclic", "lf_walk_lengths"):
             stack.enter_context(swapped(bcr, name, getattr(lf, f"{name}_plain")))
         yield
@@ -2357,6 +2373,182 @@ def phase_budget(torch, np, dev):
     return launches, tiers, stage, pair_hold
 
 
+def group_bytes(torch, args) -> tuple:
+    """The bytes ``lf_group``'s function must move for one group's data, and
+    the table rows they hold: 96 B of each distinct table row a column's
+    ranks read (its reads' old positions in the buffer before the group,
+    counted through the plain twin's own ranks), summed over the columns;
+    7 B an insert (its symbol read from the view; its slot, symbol and flag
+    written); 10 B a read (P and prev_v in and out) and the counts. The
+    kernels' own intermediates (the sorted insert sets, the scan's words)
+    are not the function's and are not counted."""
+    from rust_msbwt_tpu_torch.ops import lf
+
+    rows = 0
+    real = lf.rank_packed
+
+    def counting(tab, f, old):
+        nonlocal rows
+        rows += int(torch.unique(old.long() >> 7).numel())
+        return real(tab, f, old)
+
+    with swapped(lf, "rank_packed", counting), uncounted():
+        lf.lf_group_plain(*args)
+    return 96 * rows + 7 * int(sum(args[7])) + 10 * args[8].numel() + 48, rows
+
+
+def group_split(torch, label, fn, args, reps=5) -> dict:
+    """``fn`` (``lf_group``) over ``reps`` calls under ``torch.profiler``: its
+    device milliseconds and device events a call, by kernel (launches
+    uncounted)."""
+    import re
+
+    from rust_msbwt_tpu_torch.utils.profiling import device_us, trace
+
+    with uncounted(), tempfile.TemporaryDirectory() as d, trace(d) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and device_us(e) > 0:
+            m = re.search(r"group_kernel|[Mm]emset", e.key)
+            key = m.group(0) if m else e.key[:40]
+            by[key] = by.get(key, 0.0) + device_us(e) * 1e-3 / reps
+            by[key + " events"] = by.get(key + " events", 0) + e.count / reps
+    res = {"device_ms": sum(v for k, v in by.items() if not k.endswith(" events")),
+           "events": sum(v for k, v in by.items() if k.endswith(" events")), "kernels": by}
+    log(f"[lf] lf_group split, {label}: device {res['device_ms']:.4f} ms in "
+        f"{res['events']:.1f} events a call ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in by.items() if not k.endswith(" events")) + ")")
+    return res
+
+
+def phase_group(torch, np, dev):
+    """Phase 12f: ``lf_group`` at the benchmark's long-read shape:
+    ``ecoli-ont50x``'s 15,472 read lengths (the gamma's quantiles,
+    232,075,995 bases) over random bases, built one-shot on the card at the
+    rule's radix (2; counts reset just before): its merge passes and its
+    ``lf_pair``, ``lf_stage`` and ``lf_group`` calls and grouped columns
+    those of ``group_schedule``, its BWT == the same build with the pairs
+    alone (``pair_steps``). The group holding column GROUP_COL is kept and
+    held against ``lf_group_plain`` (``hold``: its byte bound,
+    ``group_bytes``), its device time by kernel (``group_split``); then the
+    same columns replayed from the same buffer as the pairs it replaces
+    (``lf_pair``, an odd last column ``lf_stage``, a merge pass each) to the
+    buffer and table of the group's one pass, the pairs' LF steps and the
+    replay timed against the group and the group with its pass."""
+    from portbench.traffic.closed_loop_ragged import gamma_lengths
+    from rust_msbwt_tpu_torch.ops import bcr, lf
+    from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
+    from rust_msbwt_tpu_torch.ops.rank import PAD
+    from rust_msbwt_tpu_torch.utils.profiling import timed
+
+    r = np.random.default_rng(0x0E50)
+    lengths = r.permutation(gamma_lengths(15472, 15000, 13000)).astype(np.int32)
+    N, L = lengths.size, int(lengths.max())
+    reads = np.zeros((N, L), np.uint8)
+    for i, k in enumerate(lengths):
+        reads[i, :k] = np.array([1, 2, 3, 5], np.uint8)[r.integers(0, 4, k)]
+    n_cap = int(lengths.sum()) + N
+    buckets = bcr.pair_buckets(bcr.bucket_schedule(0, N, L, n_cap, 128), L)
+    steps = bcr.group_schedule(buckets, bcr.active_counts(lengths, L), N)
+    ks = [k for _, k, _ in steps]
+    kept = []
+    real_group = bcr.lf_group
+
+    def spy(*args, order=None):
+        if args[0] <= GROUP_COL < args[0] + len(args[7]):
+            kept.append((tuple(a.clone() if isinstance(a, torch.Tensor) and i != 4 else a
+                               for i, a in enumerate(args)),  # the view (4) stays as it is
+                         order.clone()))
+        return real_group(*args, order=order)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    lf.lf_group.columns = 0
+    with swapped(bcr, "lf_group", spy):
+        build_s, (idx, packed) = timed(lambda: bcr.build_msbwt_with_index(reads, lengths,
+                                                                          device=dev))
+    c = path_counts()
+    columns = lf.lf_group.columns
+    log(f"[group] ecoli-ont50x's {N} read lengths ({n_cap} symbols, L = {L}): one-shot build "
+        f"{build_s:.3f} s ({(n_cap - N) / build_s / 1e6:.2f} Mbases/s), merge kernel launches "
+        f"{c['merge_insert']}, lf_group calls {c['lf_group']} carrying {columns} columns, "
+        f"{lf_line(c)}")
+    check((c["merge_insert"], c["lf_pair"], c["lf_stage"], c["lf_group"], columns)
+          == (1 + len(ks), ks.count(2), ks.count(1), len(ks) - ks.count(1) - ks.count(2),
+              sum(k for k in ks if k > 2)),
+          f"the ragged build's calls are not its schedule's: {c}, {columns} columns")
+    with swapped(bcr, "group_schedule", lambda b, a, n: bcr.pair_steps(b)), uncounted():
+        pairs_s, (idx2, packed2) = timed(lambda: bcr.build_msbwt_with_index(reads, lengths,
+                                                                           device=dev))
+    check(torch.equal(idx.bwt, idx2.bwt) and torch.equal(packed.table, packed2.table),
+          "the ragged build with groups != the same build with the pairs alone")
+    log(f"[group] the same build with the pairs alone ({1 + len(bcr.pair_steps(buckets))} "
+        f"passes): {pairs_s:.3f} s, BWT and table equal")
+    del idx, packed, idx2, packed2, reads
+    torch.cuda.empty_cache()
+
+    (args, order), = kept
+    j, tab, cap, nst, cols, lens, by_len, acts, P, counts, prev_v = args
+    k = len(acts)
+    bound, rows = group_bytes(torch, args)
+    label = (f"lf_group, columns {j}..{j + k - 1} of the ragged build ({int(sum(acts))} "
+             f"inserts of {N} reads, capacity {cap}, {rows} table rows)")
+    group = functools.partial(lf.lf_group, order=order)
+    res = hold(torch, label, group, lf.lf_group_plain, args, bound, reps=10, plain_reps=1)
+    res["rows"], res["columns"] = rows, k
+    res["split"] = group_split(torch, label, group, args)
+    res["us_a_column"] = res["ms"] * 1e3 / k  # event time: the call's memset and kernel
+
+    # the same columns as the pairs it replaces, from the same buffer
+    n0 = int(counts.sum())
+    old = torch.full((cap,), PAD, dtype=torch.uint8, device=dev)
+    old[:n0] = lf.symbols_from_table(tab, torch.arange(n0, device=dev))
+    scratch = lf.stage_scratch(dev)
+    bufs = [torch.empty(cap, dtype=torch.uint8, device=dev) for _ in range(2)]
+    tabs = [torch.empty_like(tab) for _ in range(2)]
+    pair_args = []
+
+    def replay(keep=False):
+        src, t_, carry = old, tab, (P, counts, prev_v)
+        for i, jj in enumerate(range(j, j + k, 2)):
+            a = (jj, t_, cap, nst, cols, lens, *carry) if jj + 1 < j + k else \
+                (jj, t_, nst, cols, lens, *carry)
+            if keep:
+                pair_args.append(a)
+            step = lf.lf_pair if len(a) == 9 else lf.lf_stage
+            q, v, active, *carry = step(*a, scratch=scratch)
+            merge_insert(src, q, v, active, out=bufs[i % 2], table=tabs[i % 2])
+            src, t_ = bufs[i % 2], tabs[i % 2]
+        return src, t_
+
+    with uncounted():
+        got_buf, got_tab = replay(keep=True)
+        q, v, active, *_ = group(*args)
+        want_buf, want_tab, _ = merge_insert(old, q, v, active)
+        torch.cuda.synchronize()
+        check(torch.equal(got_buf, want_buf) and torch.equal(got_tab, want_tab),
+              f"{label}: the pairs' passes != the group's pass")
+
+        def group_pass():
+            q, v, active, *_ = group(*args)
+            merge_insert(old, q, v, active, out=bufs[0], table=tabs[0])
+
+        pairs_ms = sum(cuda_ms(lambda a=a: (lf.lf_pair if len(a) == 9 else lf.lf_stage)(
+            *a, scratch=scratch), 5) for a in pair_args)
+        res.update({"pair_calls": len(pair_args), "pairs_ms": pairs_ms,
+                    "replay_ms": cuda_ms(replay, 2), "group_pass_ms": cuda_ms(group_pass, 5)})
+    log(f"[group] {label}: the group {res['ms']:.3f} ms against its {len(pair_args)} pair "
+        f"calls' {pairs_ms:.3f} ms; with its one pass {res['group_pass_ms']:.3f} ms against "
+        f"the pairs' {len(pair_args)} passes {res['replay_ms']:.3f} ms; "
+        f"{res['us_a_column']:.2f} us a column")
+    res.update({"build_s": build_s, "pairs_build_s": pairs_s, "launches": c["lf_group"],
+                "columns_built": columns, "passes": c["merge_insert"]})
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2439,6 +2631,8 @@ def main(argv=None) -> int:
         phase_long(torch, np, dev)
     torch.cuda.empty_cache()
     budget, _, big_stage, big_pair = phase_budget(torch, np, dev)
+    torch.cuda.empty_cache()
+    group = phase_group(torch, np, dev)
     query_holds.update({"1515m_pair_6^9": big_pair, "recovery_locate": locate_ranges})
 
     paths = {"": main_path, "_stream": stream, "_load_extend": load_extend,
@@ -2529,6 +2723,24 @@ def main(argv=None) -> int:
         "append": {k: append["pair"].get(k) for k in ("ms", "plain_ms", "bound_ms", "rows",
                                                        "device_share", "parent_ms", "turn_ms")}
         | {"device_ms": append["pair"]["split"]["device_ms"]},
+    }, {
+        "name": "lf_group",
+        "route": "cuda",
+        "source": "rust_msbwt_tpu_torch/csrc/lf.cu",
+        "replaces": None,  # no JAX kernel: the JAX package has no column groups
+        # its main path is a ragged long-read build (phase 12f: ecoli-ont50x's lengths)
+        "launches": group["launches"],
+        "columns": group["columns_built"],
+        "max_abs_err": group["max_abs_err"],
+        **{k: group[k] for k in ("ms", "plain_ms", "bound_ms", "rows", "us_a_column",
+                                 "pair_calls", "pairs_ms", "replay_ms", "group_pass_ms",
+                                 "build_s", "pairs_build_s", "passes")},
+        "bound_by": "bytes",
+        "library_ms": None,
+        "group_columns": group["columns"],
+        "device_ms": group["split"]["device_ms"],
+        "device_events": group["split"]["events"],
+        "device_kernels": group["split"]["kernels"],
     }, {
         "name": "lf_walk",
         "route": "cuda",

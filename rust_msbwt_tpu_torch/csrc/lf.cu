@@ -1,6 +1,6 @@
 // LF steps over the packed rank table, for Hopper (sm_90a): the BCR stage
-// step (lf_stage), its radix-2 column pair (lf_pair) and the batched LF
-// walks (lf_walk).
+// step (lf_stage), its radix-2 column pair (lf_pair), the column group
+// (lf_group) and the batched LF walks (lf_walk).
 //
 // The JAX package has no Pallas kernel for these: it runs them as XLA
 // fusions inside one compiled program. What they replace there:
@@ -12,6 +12,9 @@
 //             pass, column j + 1's slots from the table before column j's
 //             inserts (its argsort, one-hot scan, second rank, sort and
 //             searchsorted; the design is at pair_first_kernel below);
+//   lf_group  nothing: k > 2 columns for one merge pass, where ragged reads
+//             leave few active (ops/bcr.group_schedule; its design is in
+//             the lf_group section below);
 //   lf_walk   bcr.py::_terminator_positions_impl (:1048, the cyclic
 //             backward search of an extend), read_lengths_from_bwt (:1090),
 //             ops/extract.py::_extract_impl (:24) and _locate_walk_impl
@@ -72,8 +75,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "rank.cuh"
 #include "scan.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -922,6 +929,400 @@ PairArgs pair_args(const void* table, const void* v1, const void* v2, const void
   return a;
 }
 
+// ---------------------------------------------------------------------------
+// lf_group: a run of k > 2 BCR columns through one merge pass (column groups)
+// ---------------------------------------------------------------------------
+//
+// It replaces no JAX kernel: the JAX package has no column groups (it runs
+// one or two columns a pass). It was added for ragged reads, where few are
+// active in a column and a pass a pair would stream the whole buffer for a
+// few inserts (ops/bcr.group_schedule). Column t of the group (column j + t,
+// reads r < A_t in the build's length order, by_len) ranks over B_t, the
+// buffer B0 before the group plus the group's inserts so far, I_t, off the
+// table of B0 alone: at a read's slot x in B_t,
+//   q = C_t[f] + rank_B0(f, x - #{I_t below x}) + #{I_t below x with symbol f}
+// (lf_pair's identity, carried by induction), and then every insert of I_t
+// moves past the column's slots: y + #{l : sort(q)_l - l <= y}.
+//
+// No sort: I_t is kept sorted by slot (spos, with each insert's id << 3 |
+// symbol in skey), and a column's slots come out sorted by construction. A
+// slot's order is its symbol f first (slots of f lie in [C_t[f], C_t[f + 1]])
+// and then the order of x (rank_Bt(f, x) grows with x, strictly, since x
+// holds f). The reads of column t + 1 are those of column t whose slots are
+// column t's inserts, so one scan of I_t in slot order, by symbol, gives
+// each of them #{I_t below} (its index), #{I_t below with its symbol} and
+// the rank of its coming slot among column t + 1's (the active heads of a
+// smaller symbol, then those of its own before it). The group's first
+// column takes the order of its reads' P from the caller (the last group's
+// last column, or one argsort after a pair).
+//
+// One cooperative launch a group (a memset of the scan's words before it):
+// a persistent grid, all of it resident, runs the group's columns in phases
+// parted by grid-wide barriers, so a column costs barriers, not launches:
+//   active       the columns' active reads (a binary search of the lengths
+//                in by_len order), once a group
+//   scan         the scan of I_t (of the caller's order at t = 0), 1,024
+//                entries a tile, the tiles chained by a decoupled look-back
+//                (scan.cuh's flagged words): each active read's old
+//                position x - #{I_t below x}, its same-symbol count and its
+//                slot's rank among the heads of its symbol; the column's
+//                counts row
+//   rank         a thread a read: q off one table row (rank_at), into the
+//                column's sorted slots at its rank (after the heads of a
+//                smaller symbol: the scan's last tile's totals); the
+//                symbols counted
+//   merge        a thread an entry of I_t or of the column: its place in
+//                I_{t+1} by a binary search of the other side (both sorted)
+//   final, carry q / v / active over the 2N ids; P, prev_v and counts after
+//                the group.
+// What bounds it: in a column of few reads, the barriers and the chain of
+// dependent loads in each phase (a table row, a binary search); in a wide
+// one, the rank's random table rows (96 B each, one a read a column, as
+// lf_pair's). The scan and the merge read and write ~9 B an insert, the set
+// of at most 2N inserts kept in L2. The work is O(N): no copy of the view.
+// Forms timed at the benchmark's shape (ecoli-ont50x's lengths, whole
+// builds in turns in one call on an H100; PERF.md): three kernel launches
+// a column, 6.22-6.59 s a build; this one, 5.86-6.19 s; the scan and the
+// rank fused into one phase with the merge's keys in shared memory,
+// 5.86-6.15 s, not worth its code; a warp-wide look-back, 6.26-6.62 s.
+
+constexpr int kScanPer = 4;                    // scan: entries a thread
+constexpr int kScanTile = kThreads * kScanPer; // scan: entries a tile
+constexpr int kScanK = 2 * kSyms;              // all entries by symbol, active heads by symbol
+constexpr int kKeyShift = 3;                   // skey / qkey: insert id << 3 | symbol
+
+// Tiles of a scan over n entries (at least one).
+__host__ __device__ __forceinline__ int scan_tiles(int64_t n) {
+  return n > kScanTile ? (int)((n + kScanTile - 1) / kScanTile) : 1;
+}
+
+struct GroupArgs {
+  const int32_t* table;    // B0's
+  const uint8_t* cols;     // the stage view [L + 2, N]
+  const int32_t* lengths;  // [N]
+  const int32_t* by_len;   // [N] the reads longest first
+  const int32_t* P;
+  const uint8_t* prev_v;
+  const int32_t* counts;   // [6] before the group
+  const int32_t* order;    // [n_order] places in by_len, in slot order (column j's reads among them)
+  int32_t* q;              // [2N] by insert id
+  uint8_t* v;              // [2N]
+  uint8_t* active;         // [2N]
+  int32_t* P_out;
+  uint8_t* prev_out;
+  int32_t* counts_out;
+  int32_t* order_out;      // [N] the last column's reads in slot order
+  unsigned long long* scan_state;  // [2][state_len]: the scan's look-back words, column t's at t & 1
+  int64_t state_len;       // kScanK words a tile of the longest scan
+  int32_t* acts;           // [k] the reads active in each column
+  int32_t* cnt;            // [2][8] counts rows: before column t at row t & 1, after at the other
+  int32_t* h_old;          // [N] by place in by_len: the old position of the read's slot
+  int32_t* h_same;         // [N] the inserts below it with its symbol
+  int32_t* h_rank;         // [N] its coming slot's rank among the heads of its symbol
+  int32_t* last_id;        // [N] the read's last insert
+  int32_t* qpos;           // [N] the column's slots, sorted
+  int32_t* qkey;           // [N] and their keys
+  int32_t* spos[2];        // [2N] I_t sorted by slot (I_t in buffer t & 1)
+  int32_t* skey[2];
+  int64_t N;
+  int k;
+  int n_order;
+  int j;
+  int nst;
+};
+
+// Reads active in column c: #{r : lengths[by_len[r]] + 1 >= c}.
+__device__ __forceinline__ int group_active(const GroupArgs& a, int c) {
+  int lo = 0, hi = (int)a.N;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a.lengths[a.by_len[mid]] + 1 >= c) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Tile b of the scan of column t's heads (the entries of I_t whose ids lie
+// in [head0, head0 + A), column t - 1's inserts of the reads still active;
+// at t = 0 the caller's order, reads r < A) by symbol, and of all of I_t by
+// symbol: kScanPer entries a thread, a block scan, then the exclusive prefix
+// of the tiles before (decoupled look-back over scan.cuh's flagged words: 1
+// the tile's own totals, 2 its inclusive prefix; a block takes its tiles in
+// order, so the lowest tile unfinished waits on none). Each active read r
+// gets h_old, h_same and h_rank. Every thread of the block calls it.
+__device__ __forceinline__ void group_scan_tile(const GroupArgs& a, int t, int n, int head0,
+                                                int A, int b) {
+  __shared__ int warp_sums[kThreads / 32][kScanK];
+  __shared__ int s_excl[kScanK];
+  unsigned long long* st = a.scan_state + (t & 1) * a.state_len;
+  const int32_t* sk = a.skey[t & 1];
+  const int32_t* sp = a.spos[t & 1];
+  const int k0 = b * kScanTile + threadIdx.x * kScanPer;
+  int r[kScanPer], sym[kScanPer];  // sym -1: past the entries
+#pragma unroll
+  for (int e = 0; e < kScanPer; ++e) {
+    const int k = k0 + e;
+    r[e] = -1;
+    sym[e] = -1;
+    if (k < n) {
+      if (t == 0) {
+        r[e] = a.order[k];
+        if ((unsigned)r[e] < (unsigned)A) sym[e] = a.prev_v[a.by_len[r[e]]];
+      } else {
+        const int key = __ldcg(sk + k);
+        r[e] = (key >> kKeyShift) - head0;
+        sym[e] = key & 7;
+      }
+    }
+  }
+  int x[kScanK], tot[kScanK];
+#pragma unroll
+  for (int c = 0; c < kSyms; ++c) {
+    x[c] = x[kSyms + c] = 0;
+#pragma unroll
+    for (int e = 0; e < kScanPer; ++e) {
+      x[c] += sym[e] == c;
+      x[kSyms + c] += sym[e] == c && (unsigned)r[e] < (unsigned)A;
+    }
+  }
+  block_exclusive_scan<kThreads, kScanK>(x, tot, warp_sums);
+  if (threadIdx.x < kScanK) {
+    const int c = threadIdx.x;
+    int own = 0;
+#pragma unroll
+    for (int d = 0; d < kScanK; ++d) own = d == c ? tot[d] : own;
+    unsigned long long* mine = st + (int64_t)b * kScanK + c;
+    int excl = 0;
+    if (b == 0) {
+      store_state(mine, 2ull << 32, own);
+    } else {
+      store_state(mine, 1ull << 32, own);
+      for (int p = b - 1; p >= 0; --p) {
+        unsigned long long v;
+        for (int ns = 32; !((v = load_state(st + (int64_t)p * kScanK + c)) >> 32);
+             ns = min(2 * ns, 1024))
+          __nanosleep(ns);
+        excl += (int)(uint32_t)v;
+        if ((v >> 32) == 2) break;
+      }
+      store_state(mine, 2ull << 32, excl + own);
+    }
+    s_excl[c] = excl;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < kScanK; ++c) x[c] += s_excl[c];
+#pragma unroll
+  for (int e = 0; e < kScanPer; ++e) {
+    if (sym[e] < 0) continue;
+    int same = 0, rank = 0;
+#pragma unroll
+    for (int c = 0; c < kSyms; ++c) {
+      if (sym[e] != c) continue;
+      same = x[c]++;
+      if ((unsigned)r[e] < (unsigned)A) rank = x[kSyms + c]++;
+    }
+    if ((unsigned)r[e] >= (unsigned)A) continue;
+    const int k = k0 + e;
+    a.h_old[r[e]] = t == 0 ? a.P[a.by_len[r[e]]] : __ldcg(sp + k) - k;
+    a.h_same[r[e]] = t == 0 ? 0 : same;
+    a.h_rank[r[e]] = rank;
+  }
+  __syncthreads();  // warp_sums and s_excl free for the block's next tile
+}
+
+// Column t's reads r < A: q = C_t[f] + rank_B0(f, h_old) + h_same into the
+// column's sorted slots at its rank (the heads of a smaller symbol, from
+// the scan's last tile, then h_rank), its key (id off + r); the read's
+// symbol into v and the counts row after the column; at the last column,
+// the read into order_out at its slot's rank. Every thread of the block
+// calls it.
+__device__ __forceinline__ void group_rank(const GroupArgs& a, int t, int off, int A,
+                                           int scan_nt) {
+  __shared__ int s_c[kSyms];
+  __shared__ int s_bump[kSyms];
+  __shared__ int s_hb[kSyms];
+  const int32_t* row_in = a.cnt + (t & 1) * 8;
+  if (threadIdx.x == 0) {  // the last tile's inclusive prefix: the scan's totals
+    const unsigned long long* tot =
+        a.scan_state + (t & 1) * a.state_len + (int64_t)(scan_nt - 1) * kScanK + kSyms;
+    int h = 0;
+    for (int s = 0; s < kSyms; ++s) {
+      s_hb[s] = h;
+      h += (int)(uint32_t)load_state(tot + s);
+    }
+  }
+  if (threadIdx.x < kSyms) {
+    int c = 0;
+    if (threadIdx.x > 0) {
+      c = a.nst;
+      for (int s = 1; s < (int)threadIdx.x; ++s) c += __ldcg(row_in + s);
+    }
+    s_c[threadIdx.x] = c;
+    s_bump[threadIdx.x] = 0;
+  }
+  __syncthreads();
+  const bool last = t == a.k - 1;
+  for (int base = blockIdx.x * kThreads; base < A; base += gridDim.x * kThreads) {
+    const int r = base + threadIdx.x;
+    int sym = -1;
+    if (r < A) {
+      const int64_t i = a.by_len[r];
+      const int64_t c = a.j + t;
+      const int f = t == 0 ? a.prev_v[i] : a.cols[(c - 1) * a.N + i];
+      const int vv = a.cols[c * a.N + i];
+      const int l = s_hb[f] + __ldcg(a.h_rank + r);
+      a.qpos[l] = s_c[f] + rank_at(a.table, f, __ldcg(a.h_old + r)) + __ldcg(a.h_same + r);
+      a.qkey[l] = ((off + r) << kKeyShift) | vv;
+      a.v[off + r] = (uint8_t)vv;
+      a.last_id[r] = off + r;
+      if (last) a.order_out[l] = r;
+      sym = vv;
+    }
+#pragma unroll
+    for (int s = 0; s < kSyms; ++s) {
+      const int c = __popc(__ballot_sync(kFull, sym == s));
+      if ((threadIdx.x & 31) == 0 && c) atomicAdd(&s_bump[s], c);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kSyms && s_bump[threadIdx.x])
+    atomicAdd(a.cnt + ((t + 1) & 1) * 8 + threadIdx.x, s_bump[threadIdx.x]);
+}
+
+// I_{t+1} from I_t (m entries, buffer t & 1) and column t's A sorted slots:
+// an entry at slot y of I_t moves to y + #{l : qpos[l] - l <= y}, at index
+// k + that; the column's slot l goes to index l + #{I_t below qpos[l] - l}.
+__device__ __forceinline__ void group_merge(const GroupArgs& a, int t, int m, int A) {
+  const int32_t* sp = a.spos[t & 1];
+  const int32_t* sk = a.skey[t & 1];
+  int32_t* dp = a.spos[(t + 1) & 1];
+  int32_t* dk = a.skey[(t + 1) & 1];
+  for (int idx = blockIdx.x * kThreads + threadIdx.x; idx < m + A;
+       idx += gridDim.x * kThreads) {
+    if (idx < m) {
+      const int y = __ldcg(sp + idx);
+      int lo = 0, hi = A;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (__ldcg(a.qpos + mid) - mid <= y) lo = mid + 1;
+        else hi = mid;
+      }
+      dp[idx + lo] = y + lo;
+      dk[idx + lo] = __ldcg(sk + idx);
+    } else {
+      const int l = idx - m;
+      const int q = __ldcg(a.qpos + l), d = q - l;
+      int lo = 0, hi = m;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (__ldcg(sp + mid) < d) lo = mid + 1;
+        else hi = mid;
+      }
+      dp[l + lo] = q;
+      dk[l + lo] = __ldcg(a.qkey + l);
+    }
+  }
+}
+
+// The group: its columns' active counts, then a column at a time the scan,
+// the rank and the merge, each phase ended by a grid-wide barrier (the grid
+// is all resident: a cooperative launch); then the outputs by id and the
+// carry. Column t's look-back words are cleared in its merge phase (the
+// rank has read them) for column t + 2. Every thread of the grid runs every
+// phase.
+__global__ void __launch_bounds__(kThreads) group_kernel(const GroupArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const int gt = blockIdx.x * kThreads + threadIdx.x, gs = gridDim.x * kThreads;
+  for (int t = gt; t < a.k; t += gs) a.acts[t] = group_active(a, a.j + t);
+  if (gt < kSyms) a.cnt[gt] = a.counts[gt];
+  grid.sync();
+  int off = 0, head0 = 0;
+  for (int t = 0; t < a.k; ++t) {
+    const int A = __ldcg(a.acts + t);
+    const int n = t == 0 ? a.n_order : off;
+    const int nt = scan_tiles(n);
+    if (gt < kSyms) a.cnt[((t + 1) & 1) * 8 + gt] = __ldcg(a.cnt + (t & 1) * 8 + gt);
+    for (int b = blockIdx.x; b < nt; b += gridDim.x) group_scan_tile(a, t, n, head0, A, b);
+    grid.sync();
+    group_rank(a, t, off, A, nt);
+    grid.sync();
+    unsigned long long* st = a.scan_state + (t & 1) * a.state_len;
+    for (int i = gt; i < nt * kScanK; i += gs) st[i] = 0;
+    group_merge(a, t, off, A);
+    grid.sync();
+    head0 = off;
+    off += A;
+  }
+  const int M = off, kb = a.k & 1;
+  for (int64_t idx = gt; idx < 2 * a.N; idx += gs) {
+    if (idx < M) {
+      a.q[__ldcg(a.skey[kb] + idx) >> kKeyShift] = __ldcg(a.spos[kb] + idx);
+      a.active[idx] = 1;
+    } else {
+      a.q[idx] = 0;
+      a.v[idx] = 0;
+      a.active[idx] = 0;
+    }
+  }
+  grid.sync();
+  const int A0 = __ldcg(a.acts);
+  if (gt < kSyms) a.counts_out[gt] = __ldcg(a.cnt + kb * 8 + gt);
+  for (int64_t r = gt; r < a.N; r += gs) {
+    const int64_t i = a.by_len[r];
+    if (r < A0) {
+      const int e = __ldcg(a.last_id + r);
+      a.P_out[i] = __ldcg(a.q + e);
+      a.prev_out[i] = __ldcg(a.v + e);
+    } else {
+      a.P_out[i] = a.P[i];
+      a.prev_out[i] = a.prev_v[i];
+    }
+  }
+}
+
+// lf_group's work array in int32 words, for N reads and k columns: the
+// scan's look-back words (zeroed by the launcher), the active counts, the
+// counts rows, then the per-read arrays and the two sorted insert sets.
+struct GroupLayout {
+  int64_t state = 0, state_len, acts, cnt, h_old, h_same, h_rank, last_id, qpos, qkey, spos0,
+          skey0, spos1, skey1, total;
+  GroupLayout(int64_t N, int64_t k) {
+    state_len = (int64_t)scan_tiles(2 * N) * kScanK;  // u64 words a column
+    acts = state + 4 * state_len;
+    cnt = acts + ((k + 1) & ~int64_t(1));
+    h_old = cnt + 16;
+    h_same = h_old + N;
+    h_rank = h_same + N;
+    last_id = h_rank + N;
+    qpos = last_id + N;
+    qkey = qpos + N;
+    spos0 = qkey + N;
+    skey0 = spos0 + 2 * N;
+    spos1 = skey0 + 2 * N;
+    skey1 = spos1 + 2 * N;
+    total = skey1 + 2 * N;
+  }
+};
+
+// The blocks of group_kernel's grid on the current device: as many as the
+// group's widest phase takes (2N threads), at most as many as are resident
+// at once (a cooperative launch needs the whole grid resident).
+int group_grid(int64_t N) {
+  static int resident[64];  // a device's resident blocks, once found (0: not yet)
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int cap = dev < 64 ? resident[dev] : 0;
+  if (cap == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, group_kernel, kThreads, 0);
+    cap = sms * per_sm;
+    if (dev < 64) resident[dev] = cap;
+  }
+  const int64_t want = (2 * N + kThreads - 1) / kThreads;
+  return (int)(want < cap ? want : cap);
+}
 
 struct WalkArgs {
   const int32_t* table;
@@ -1252,6 +1653,83 @@ int msbwt_lf_pair(const void* table, const void* v1, const void* v2, const void*
   PairArgs a = pair_args(table, v1, v2, lengths, P, prev_v, counts, q, active, P_out, prev_out,
                          counts_out, scratch, work, N, cap, j, nst, shift, l);
   launch_pair(a, l, st);
+  return (int)cudaGetLastError();
+}
+
+// lf_group's work array for N reads and k columns, in int32 words (the
+// caller allocates it).
+int64_t msbwt_lf_group_work_len(int64_t N, int64_t k) { return GroupLayout(N, k).total; }
+
+// Columns j..j+k-1 for one merge pass: acts (host int32 [k], falling, at
+// most N, summing to at most 2N) the reads active in each, which are the
+// first of by_len i32 [N] (the reads longest first; lengths i32 [N], whose
+// counts acts must be); table i32 [rows, 32] of the buffer before the group
+// (16 B-aligned), cols u8 [L + 2, N], P i32 [N], prev_v u8 [N], counts i32
+// [6], order i32 [n_order] (places in by_len in slot order, every read of
+// column j among them) -> q i32 [2N], v u8 [2N], active bool [2N] (the
+// inserts by id, column t's reads at ids off_t + r, the sum(acts) active ids
+// first), P_out i32 [N], prev_out u8 [N], counts_out i32 [6], order_out i32
+// [N] (its first acts[k - 1]: the last column's reads in slot order). work
+// i32 [msbwt_lf_group_work_len(N, k)] is the call's own. A memset and one
+// cooperative launch on `stream`; returns the first error.
+int msbwt_lf_group(const void* table, const void* cols, const void* lengths, const void* by_len,
+                   const void* P, const void* prev_v, const void* counts, const void* order,
+                   void* q, void* v, void* active, void* P_out, void* prev_out,
+                   void* counts_out, void* order_out, void* work, const void* acts_host,
+                   int64_t N, int k, int n_order, int j, int nst, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int32_t* acts = (const int32_t*)acts_host;
+  if (N <= 0 || N >= (int64_t(1) << 26) || k < 1 || n_order < acts[0] || n_order > N)
+    return (int)cudaErrorInvalidValue;
+  int64_t sum = 0;
+  for (int t = 0; t < k; ++t) {
+    if (acts[t] < 0 || acts[t] > (t ? acts[t - 1] : N)) return (int)cudaErrorInvalidValue;
+    sum += acts[t];
+  }
+  if (sum > 2 * N) return (int)cudaErrorInvalidValue;
+  const GroupLayout l(N, k);
+  int32_t* w = (int32_t*)work;
+  GroupArgs a = {};
+  a.table = (const int32_t*)table;
+  a.cols = (const uint8_t*)cols;
+  a.lengths = (const int32_t*)lengths;
+  a.by_len = (const int32_t*)by_len;
+  a.P = (const int32_t*)P;
+  a.prev_v = (const uint8_t*)prev_v;
+  a.counts = (const int32_t*)counts;
+  a.order = (const int32_t*)order;
+  a.q = (int32_t*)q;
+  a.v = (uint8_t*)v;
+  a.active = (uint8_t*)active;
+  a.P_out = (int32_t*)P_out;
+  a.prev_out = (uint8_t*)prev_out;
+  a.counts_out = (int32_t*)counts_out;
+  a.order_out = (int32_t*)order_out;
+  a.scan_state = reinterpret_cast<unsigned long long*>(w + l.state);
+  a.state_len = l.state_len;
+  a.acts = w + l.acts;
+  a.cnt = w + l.cnt;
+  a.h_old = w + l.h_old;
+  a.h_same = w + l.h_same;
+  a.h_rank = w + l.h_rank;
+  a.last_id = w + l.last_id;
+  a.qpos = w + l.qpos;
+  a.qkey = w + l.qkey;
+  a.spos[0] = w + l.spos0;
+  a.skey[0] = w + l.skey0;
+  a.spos[1] = w + l.spos1;
+  a.skey[1] = w + l.skey1;
+  a.N = N;
+  a.k = k;
+  a.n_order = n_order;
+  a.j = j;
+  a.nst = nst;
+  cudaError_t err = cudaMemsetAsync(w, 0, l.acts * sizeof(int32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)group_kernel, dim3(group_grid(N)),
+                                    dim3(kThreads), args, 0, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -47,6 +47,15 @@ picks it from 1,000 buffer symbols a new read, the base counted; the JAX
 package's rule leaves the base out, so there an append of short reads
 stays at radix 1.
 
+Column groups. Where reads of different lengths leave few of them active
+(the tail of a long-read set), a radix-2 pass would stream the whole
+buffer for a few inserts. ``group_schedule`` lets one pass carry as many
+consecutive columns of a bucket as fit in the 2N slots of a pair, counted
+from the read lengths (``active_counts``), and ``ops.lf.lf_group`` ranks
+them (one host call a group); runs of one or two columns stay
+``lf_stage`` / ``lf_pair``, so fixed-length reads run exactly the pairs.
+The JAX package has no counterpart: the same bytes in fewer passes.
+
 The JAX package's XLA scatter engine ``bcr_insert_core`` has no counterpart
 of its own: the build functions' ``merge=`` takes the plain pass
 ``ops.merge_insert.merge_insert_slots``, which gives the same bytes on any
@@ -64,6 +73,7 @@ import torch
 from rust_msbwt_tpu_torch.ops.alphabet import VC_LEN
 from rust_msbwt_tpu_torch.ops.lf import (
     _bump_counts,
+    lf_group,
     lf_pair,
     lf_stage,
     lf_walk_cyclic,
@@ -348,6 +358,71 @@ def pair_buckets(buckets: list[tuple[int, int, int]], L: int) -> list[tuple[int,
     return out
 
 
+def active_counts(lengths: np.ndarray, L: int) -> np.ndarray:
+    """Reads active in each column c of a build, ``A[c] = #{i : c <= len_i
+    + 1}`` for c in [0, L + 2) (int64): a column's active reads are the
+    first ``A[c]`` of ``length_order``.
+
+    >>> active_counts(np.array([3, 1, 2]), 3).tolist()
+    [3, 3, 3, 2, 1]
+    """
+    hist = np.bincount(np.asarray(lengths, dtype=np.int64) + 1, minlength=L + 2)[: L + 2]
+    return np.cumsum(hist[::-1])[::-1]
+
+
+def length_order(lengths: np.ndarray) -> np.ndarray:
+    """The reads longest first, ties in read order (int32 [N]).
+
+    >>> length_order(np.array([3, 1, 3, 2])).tolist()
+    [0, 2, 3, 1]
+    """
+    return np.argsort(-np.asarray(lengths, dtype=np.int64), kind="stable").astype(np.int32)
+
+
+def pair_steps(buckets: list[tuple[int, int, int]]) -> list[tuple[int, int, int]]:
+    """The passes of a radix-2 schedule (``pair_buckets``) as ``(j, k,
+    cap)``: columns j..j+k-1 at capacity cap, a pair each, an odd last
+    column alone.
+
+    >>> pair_steps([(2, 4, 48), (4, 7, 64)])
+    [(2, 2, 48), (4, 2, 64), (6, 1, 64)]
+    """
+    return [(j, min(2, b - j), cap) for a, b, cap in buckets for j in range(a, b, 2)]
+
+
+def group_schedule(buckets: list[tuple[int, int, int]], active: np.ndarray,
+                   N: int) -> list[tuple[int, int, int]]:
+    """The radix-2 schedule's passes with column groups, as ``(j, k, cap)``.
+    Inside each bucket of ``pair_buckets``, from its first column j, a pass
+    takes the longest run j..j+k-1 whose active reads (``active``, from
+    ``active_counts``) sum to at most 2N, the slots of one pair; a run of
+    one or two columns stays a pair (``lf_pair``, or ``lf_stage`` for a
+    bucket's last column alone), a longer one is a group (``ops.lf.lf_group``).
+    A group never crosses a bucket, so the bucket's capacity holds its last
+    column. With every read of one length every column has N active, so the
+    passes are ``pair_steps(buckets)``.
+
+    >>> b = [(2, 6, 64), (6, 11, 96)]
+    >>> group_schedule(b, np.full(11, 4), 4) == pair_steps(b)
+    True
+    >>> group_schedule(b, np.array([4, 4, 4, 4, 3, 2, 2, 1, 1, 1, 1]), 4)
+    [(2, 2, 64), (4, 2, 64), (6, 5, 96)]
+    """
+    steps = []
+    for ja, jb, cap in buckets:
+        j = ja
+        while j < jb:
+            k, held = 0, 0
+            while j + k < jb and held + int(active[j + k]) <= 2 * N:
+                held += int(active[j + k])
+                k += 1
+            if k <= 2:
+                k = min(2, jb - j)
+            steps.append((j, k, cap))
+            j += k
+    return steps
+
+
 def build_radix(n_cap: int | None = None, n_reads: int | None = None) -> int:
     """Columns one merge pass consumes (1 or 2): 2 where the buffer holds at
     least 1,000 symbols a new read, ``n_cap / n_reads >= 1000`` with a
@@ -454,7 +529,9 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
     when the caller holds it), one column a pass or, where ``build_radix``
     picks 2, two. Returns the final buffer (uint8 [aligned n_cap], PAD past
     n_cap), its packed table (int32 [aligned n_cap / 128 + 1, 32]) and the
-    symbol counts. Every ``lf_stage`` and ``lf_pair`` call gets the build's
+    symbol counts. Where the radix-2 schedule groups columns
+    (``group_schedule``), a group's pass takes ``lf_group``'s slots.
+    Every ``lf_stage`` and ``lf_pair`` call gets the build's
     own scratch, so builds on two streams share no accumulator. A build
     adds the symbols its passes stream to ``merge_streamed`` once."""
     N, L, n0, n_cap = p["N"], p["L"], p["n0"], p["n_cap"]
@@ -466,10 +543,16 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
     with annotate("msbwt.stage1"):
         q1 = _stage1_slots(p, cols, lengths, base, base_index, base_rot_max, merge)
     with annotate("msbwt.buffers"):
-        radix = build_radix(n_cap, N)
         buckets = bucket_schedule(n0, N, L, n_cap, BIN)
-        if radix == 2:
+        if build_radix(n_cap, N) == 2:
             buckets = pair_buckets(buckets, L)
+            acts = active_counts(p["lengths"], L)
+            steps = group_schedule(buckets, acts, N)
+        else:
+            steps = [(j, 1, cap) for ja, jb, cap in buckets for j in range(ja, jb)]
+        by_len = None
+        if any(k > 2 for _, k, _ in steps):  # reads longest first: one upload a build
+            by_len = torch.from_numpy(length_order(p["lengths"])).to(device)
         full_cap = buckets[-1][2]
         bufs = [torch.full((full_cap,), PAD, dtype=torch.uint8, device=device)
                 for _ in range(2)]
@@ -504,20 +587,23 @@ def _build_device(p: dict, device, merge, base=None, base_index=None,
         P = q1
         counts = _bump_counts(counts, prev_v, active)
         nst = p["n_strings_total"]
-        for ja, jb, cap in buckets:
+        order = None  # a group's reads in slot order, for the group after it
+        for j, k, cap in steps:
             tab = table[: cap // BIN + 1]
-            j = ja
-            while j < jb:
-                if radix == 2 and j + 1 < jb:
-                    q, v, active, P, counts, prev_v = lf_pair(
-                        j, tab, cap, nst, cols, lengths, P, counts, prev_v, scratch=scratch)
-                    j += 2
-                else:
-                    q, v, active, P, counts, prev_v = lf_stage(
-                        j, tab, nst, cols, lengths, P, counts, prev_v, scratch=scratch)
-                    j += 1
-                cur, m = run_pass(cur, cap, q, v, active)
-                n_valid = n_valid + m
+            if k > 2:
+                q, v, active, P, counts, prev_v, order = lf_group(
+                    j, tab, cap, nst, cols, lengths, by_len, acts[j: j + k], P, counts,
+                    prev_v, order=order)
+            elif k == 2:
+                q, v, active, P, counts, prev_v = lf_pair(
+                    j, tab, cap, nst, cols, lengths, P, counts, prev_v, scratch=scratch)
+                order = None
+            else:
+                q, v, active, P, counts, prev_v = lf_stage(
+                    j, tab, nst, cols, lengths, P, counts, prev_v, scratch=scratch)
+                order = None
+            cur, m = run_pass(cur, cap, q, v, active)
+            n_valid = n_valid + m
     with annotate("msbwt.sync"):  # the one host sync of the stage loop
         n_valid = int(n_valid)
     if n_valid != n_cap:

@@ -1,4 +1,4 @@
-"""The LF step over the packed rank table: two hand-written CUDA kernels
+"""The LF step over the packed rank table: hand-written CUDA kernels
 (``csrc/lf.cu``) and their plain PyTorch twins.
 
 The JAX package runs these as XLA fusions inside one compiled program
@@ -20,6 +20,13 @@ host launches a column or a walk step. Here each is one call:
   its tile's bucket by the atomic that counts it), the counts summed in the
   same scratch. ``lf_pair_plain`` (``lf_stage_plain``, ``pair_order``,
   ``pair_slots``: argsorts and scans in torch) is the plain version.
+* **lf_group** — k > 2 BCR columns for one merge pass (a column group of
+  ``ops.bcr.group_schedule``, where ragged reads leave few active): each
+  column's slots ranked over the buffer with the group's earlier inserts
+  off the table before the group, every earlier insert moved past them;
+  one cooperative kernel a group, its columns in phases parted by
+  grid-wide barriers. ``lf_group_plain`` (``group_column`` a column:
+  sorts and searches in torch) is the plain version.
 * **lf_walk** — a batched LF walk run to its end inside one call. Four walks
   share the kernel file: ``lf_walk_cyclic`` (the extend's cyclic terminator
   search, symbols from the stage view) and ``lf_walk_extract`` (reads
@@ -319,6 +326,162 @@ def lf_pair(j: int, tab: torch.Tensor, cap: int, nst: int, cols: torch.Tensor,
 
 
 lf_pair.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# lf_group: a run of k > 2 BCR columns for one merge pass (column groups)
+# ---------------------------------------------------------------------------
+
+def group_column(pos, sym, x, f, base):
+    """One column of a group, over the group's inserts so far: ``pos``
+    (int64 ``[m]``, distinct) their slots in the buffer B_t and ``sym``
+    their symbols; ``x`` (int64 ``[A]``) the slot in B_t of each active
+    read's last symbol and ``f`` that symbol; ``base(f, old)`` is ``C_t[f]
+    + rank_B0(f, old)`` at a position ``old`` of B0, the buffer before the
+    group. Returns int64 ``(q, moved)``:
+
+    * ``q = base(f, x - #{pos < x}) + #{pos < x with symbol f}``, the
+      column's slots in B_{t+1}: the rank over B_t at x split into the
+      symbols of B0 below it and the inserts below it;
+    * ``moved = pos + #{l : sort(q)_l - l <= pos}``, the inserts moved past
+      the column's (the stable merge of ``pair_slots``).
+
+    Both sides are searched over exactly their own entries, so no sentinel
+    enters and every slot below 2^31 is exact."""
+    below = torch.searchsorted(torch.sort(pos).values, x)
+    same = torch.zeros_like(x)
+    for s in range(VC_LEN):
+        hit = f == s
+        same[hit] = torch.searchsorted(torch.sort(pos[sym == s]).values, x[hit])
+    q = base(f, x - below) + same
+    ar = torch.arange(q.shape[0], device=q.device)
+    moved = pos + torch.searchsorted(torch.sort(q).values - ar, pos, right=True)
+    return q, moved
+
+
+def lf_group_plain(j, tab, cap, nst, cols, lengths, by_len, acts, P, counts, prev_v,
+                   order=None):
+    """Columns j..j+k-1 through one pass, k = ``len(acts)``, from the table
+    ``tab`` of B0, the buffer before the group (``cap`` the pass's
+    capacity, ``nst`` strings in all). ``by_len`` (int ``[N]``) lists the
+    reads longest first (``ops.bcr.length_order`` of ``lengths``) and
+    ``acts[t]`` (host ints) counts the reads active in column j + t, so
+    those are the first ``acts[t]`` of it; ``acts`` is non-increasing and
+    sums to at most 2N. Column by column (``group_column``): column t's
+    slots in B_{t+1} from the rank over B_t, then every earlier insert moved
+    past them. ``lengths`` and ``order`` are ``lf_group``'s and unused
+    here.
+
+    Returns ``(q, v, active, P, counts, prev_v, order)``: ``q`` / ``v`` /
+    ``active`` over 2N insert ids, column t's at ``off[t] + r`` for its
+    r-th read, the ``sum(acts)`` active ids first; the carry after the
+    group (a read's P the slot of its last insert in the buffer after the
+    pass, P and prev_v unchanged for a read active in no column); and
+    ``order``, int32 ``[acts[-1]]``, the last column's reads (their places
+    in ``by_len``) in the order of their slots."""
+    dev = P.device
+    N, k = P.shape[0], len(acts)
+    off = np.concatenate([[0], np.cumsum(acts)]).tolist()  # column t's ids: off[t] + r
+    by = by_len.long()
+    pos = torch.zeros(off[k], dtype=torch.int64, device=dev)
+    sym = torch.zeros(off[k], dtype=torch.uint8, device=dev)
+    for t in range(k):
+        A, m = int(acts[t]), off[t]
+        rr = by[:A]
+        if t == 0:
+            x, f = P[rr].long(), prev_v[rr]
+        else:
+            heads = off[t - 1] + torch.arange(A, device=dev)
+            x, f = pos[heads], sym[heads]
+        cvec = _cvec(counts, nst).long()
+
+        def base(f, old, cvec=cvec):
+            return cvec[f.long()] + rank_packed(tab, f, old).long()
+
+        q, pos[:m] = group_column(pos[:m], sym[:m], x, f, base)
+        v = cols[j + t][rr]
+        pos[m: m + A], sym[m: m + A] = q, v
+        counts = _bump_counts(counts, v, torch.ones(A, dtype=torch.bool, device=dev))
+    q_out = torch.zeros(2 * N, dtype=_I32, device=dev)
+    v_out = torch.zeros(2 * N, dtype=torch.uint8, device=dev)
+    q_out[: off[k]], v_out[: off[k]] = pos.to(_I32), sym
+    active = torch.arange(2 * N, device=dev) < off[k]
+    P, prev_v = P.clone(), prev_v.clone()
+    for t in range(k):  # reads r in [acts[t + 1], acts[t]) insert last in column t
+        r = torch.arange(int(acts[t + 1]) if t + 1 < k else 0, int(acts[t]), device=dev)
+        P[by[r]], prev_v[by[r]] = pos[off[t] + r].to(_I32), sym[off[t] + r]
+    order = torch.argsort(pos[off[k - 1]:]).to(_I32)
+    return q_out, v_out, active, P, counts, prev_v, order
+
+
+def lf_group(j: int, tab: torch.Tensor, cap: int, nst: int, cols: torch.Tensor,
+             lengths: torch.Tensor, by_len: torch.Tensor, acts, P: torch.Tensor,
+             counts: torch.Tensor, prev_v: torch.Tensor, *,
+             order: torch.Tensor | None = None):
+    """Columns j..j+k-1 (k = ``len(acts)``, host ints) for one merge pass,
+    as ``lf_group_plain``: the stage loop's step for a column group
+    (``ops.bcr.group_schedule``). Returns ``(q, v, active, P, counts,
+    prev_v, order)``, ``q`` / ``v`` / ``active`` over 2N slots with the
+    group's ``sum(acts)`` inserts first.
+
+    ``order`` lists the reads of column j (their places in ``by_len``) in
+    the order of their slots P, as the last group returned it (that
+    group's last column, a superset); without it the call sorts them
+    first (one ``torch.argsort``: after a pair or a single column). On
+    CUDA tensors a memset and one cooperative kernel launch, its columns
+    in phases parted by grid-wide barriers (``csrc/lf.cu``,
+    ``msbwt_lf_group``; the kernel counts each column's active reads from
+    ``lengths``, which ``acts`` must match), no host sync, a work array of
+    ~56 B a read. Unlike ``lf_stage`` and ``lf_pair`` it takes no scratch:
+    its counts live in its work array. ``lf_group.launches`` counts calls
+    and ``lf_group.columns`` the columns they carry.
+    """
+    from rust_msbwt_tpu_torch import _kernels
+
+    dev = _device_of(tab)
+    if dev is None:
+        return lf_group_plain(j, tab, cap, nst, cols, lengths, by_len, acts, P, counts, prev_v,
+                              order)
+    N, k = P.shape[0], len(acts)
+    acts = np.ascontiguousarray(acts, dtype=np.int32)
+    if k < 1 or not 0 <= j < cols.shape[0] - k + 1:
+        raise ValueError(f"columns {j}..{j + k - 1} outside the stage view of {cols.shape[0]} rows")
+    if (acts[0] > N or (acts < 0).any() or (np.diff(acts) > 0).any()
+            or int(acts.sum(dtype=np.int64)) > 2 * N):
+        raise ValueError("lf_group: active counts must fall, start at most N and sum to at most 2N")
+    if not 0 <= cap < 2**31 or tab.shape[0] <= cap // BIN:
+        raise ValueError(f"lf_group: capacity {cap} over a table of {tab.shape[0]} rows")
+    if not 0 <= nst < 2**31 or N >= 2**26:
+        raise ValueError("lf_group: the string count must fit int32 and N 2^26")
+    _check("cols", cols, torch.uint8, (cols.shape[0], N), dev)
+    _check("lengths", lengths, _I32, (N,), dev)
+    _check("by_len", by_len, _I32, (N,), dev)
+    _check("P", P, _I32, (N,), dev)
+    _check("prev_v", prev_v, torch.uint8, (N,), dev)
+    _check("counts", counts, _I32, (VC_LEN,), dev)
+    if order is None:
+        order = torch.argsort(P[by_len[: int(acts[0])].long()]).to(_I32)
+    _check("order", order, _I32, (order.shape[0],), dev)
+    if order.shape[0] < acts[0]:
+        raise ValueError("lf_group: the order holds fewer reads than the first column")
+    work = torch.empty(_kernels.load().msbwt_lf_group_work_len(N, k), dtype=_I32, device=dev)
+    q = torch.empty(2 * N, dtype=_I32, device=dev)
+    v = torch.empty(2 * N, dtype=torch.uint8, device=dev)
+    active = torch.empty(2 * N, dtype=torch.bool, device=dev)
+    P_out = torch.empty(N, dtype=_I32, device=dev)
+    prev_out = torch.empty(N, dtype=torch.uint8, device=dev)
+    counts_out = torch.empty(VC_LEN, dtype=_I32, device=dev)
+    order_out = torch.empty(N, dtype=_I32, device=dev)
+    _launch("msbwt_lf_group", tab, cols, lengths, by_len, P, prev_v, counts, order, q, v, active,
+            P_out, prev_out, counts_out, order_out, work, acts.ctypes.data, N, k,
+            order.shape[0], j, nst, dev=dev)
+    lf_group.launches += 1
+    lf_group.columns += k
+    return q, v, active, P_out, counts_out, prev_out, order_out[: int(acts[-1])]
+
+
+lf_group.launches = 0
+lf_group.columns = 0
 
 
 # ---------------------------------------------------------------------------

@@ -408,8 +408,10 @@ def _radix_reads(kind, tile):
                                                 ("ragged", True), ("ragged", False)])
 def test_radix2_build_matches_radix1_and_plain(cuda, monkeypatch, kind, sorted_insert):
     """A radix-2 build (2N slots a pass, unsorted; ``lf_pair`` a column
-    pair) through the kernels == the radix-1 build == the radix-2 build
-    through the plain pass and LF steps (no kernel launched)."""
+    pair, ``lf_group`` a column group where the ragged reads' tail leaves
+    few active) through the kernels == the radix-1 build == the radix-2
+    build through the plain pass and LF steps (no kernel launched); its
+    passes, pairs, single columns and groups those of its schedule."""
     from rust_msbwt_tpu_torch import _kernels
     from rust_msbwt_tpu_torch.ops import bcr, lf
 
@@ -418,6 +420,7 @@ def test_radix2_build_matches_radix1_and_plain(cuda, monkeypatch, kind, sorted_i
         n = int(lengths.sum()) + lengths.size
         assert n - 2 * _kernels.load().msbwt_merge_tile() == int(kind[4:])
     out = {}
+    counters = (merge_insert, lf.lf_stage, lf.lf_pair, lf.lf_group)
     for name, radix, merge in (("r2", 2, merge_insert), ("r1", 1, merge_insert),
                                ("r2_plain", 2, merge_insert_slots)):
         monkeypatch.setenv("MSBWT_TPU_RADIX", str(radix))
@@ -425,15 +428,25 @@ def test_radix2_build_matches_radix1_and_plain(cuda, monkeypatch, kind, sorted_i
             if name == "r2_plain":
                 m.setattr(bcr, "lf_stage", lambda *a, scratch=None: lf.lf_stage_plain(*a))
                 m.setattr(bcr, "lf_pair", lambda *a, scratch=None: lf.lf_pair_plain(*a))
-            before = (merge_insert.launches, lf.lf_stage.launches, lf.lf_pair.launches)
+                m.setattr(bcr, "lf_group",
+                          lambda *a, order=None: lf.lf_group_plain(*a, order))
+            before = [c.launches for c in counters]
             idx, packed = build_msbwt_with_index(reads, lengths, sorted_insert, device=cuda,
                                                  merge=merge)
-        out[name] = (idx.bwt, packed.table, merge_insert.launches - before[0],
-                     lf.lf_stage.launches - before[1], lf.lf_pair.launches - before[2])
-    L = reads.shape[1]
-    assert out["r1"][2:] == (1 + L, L, 0)
-    assert out["r2"][2:] == (1 + -(-L // 2), L % 2, L // 2)
-    assert out["r2_plain"][2:] == (0, 0, 0)
+        out[name] = (idx.bwt, packed.table,
+                     *(c.launches - b for c, b in zip(counters, before)))
+    N, L = lengths.size, reads.shape[1]
+    n_cap = int(lengths.sum()) + N
+    steps = bcr.group_schedule(bcr.pair_buckets(bcr.bucket_schedule(0, N, L, n_cap, 128), L),
+                               bcr.active_counts(lengths, L), N)
+    ks = [k for _, k, _ in steps]
+    assert out["r1"][2:] == (1 + L, L, 0, 0)
+    assert out["r2"][2:] == (1 + len(ks), ks.count(1), ks.count(2), len(ks) - ks.count(1)
+                             - ks.count(2))
+    assert (kind == "ragged") == (out["r2"][5] > 0)  # fixed lengths: pairs only
+    if kind != "ragged":
+        assert out["r2"][2:5] == (1 + -(-L // 2), L % 2, L // 2)
+    assert out["r2_plain"][2:] == (0, 0, 0, 0)
     for name in ("r1", "r2_plain"):
         assert torch.equal(out["r2"][0], out[name][0]) and torch.equal(out["r2"][1], out[name][1])
 
@@ -711,6 +724,77 @@ def lf_pair_args(case, dev):
     _, table, _ = merge_insert(old, none, none.to(torch.uint8), none.bool())
     return (case["j"], table, case["cap"], case["nst"], t("cols"), t("lengths"), t("P"),
             t("counts"), t("prev_v"))
+
+
+# lf_group cases: the column groups of a CPU build at radix 2 of ragged
+# reads, each captured with the state before its pass: the carry, the table
+# and the buffer of B0, the order the stage loop hands over (None after a
+# pair), and the build's sorted lengths (for the column-by-column oracle of
+# tests/test_torch_group.py)
+GROUP_SHAPES = {  # reads, gamma mean and sd (the benchmark's long-read shape, cut), seed
+    "gamma": (300, 150, 130, 20), "thin_tail": (60, 4, 3, 21), "k3": (40, 30, 6, 22)}
+
+
+def ragged_reads(n, mean, sd, seed):
+    """n reads whose lengths are the quantiles of a gamma of ``mean`` and
+    ``sd`` (``portbench.traffic.closed_loop_ragged.gamma_lengths``, the
+    benchmark's long-read model), in an order and with symbols 1..5 drawn
+    from ``seed``; the longest read made 4x longer for a thin tail."""
+    from portbench.traffic.closed_loop_ragged import gamma_lengths
+
+    r = np.random.default_rng(seed)
+    lengths = r.permutation(gamma_lengths(n, mean, sd)).astype(np.int32)
+    lengths[int(np.argmax(lengths))] *= 4
+    reads = np.zeros((n, int(lengths.max())), np.uint8)
+    for i, k in enumerate(lengths):
+        reads[i, :k] = r.integers(1, 6, k)
+    return reads, lengths
+
+
+def group_captures(reads, lengths, monkeypatch, sorted_insert=True, keep=None, **kw):
+    """The ``lf_group`` calls of a CPU build of these reads at radix 2
+    (forced), in order; a call that ``keep(i, k)`` refuses (i its index, k
+    its columns) is None. A kept call is a dict of its arguments (``order``
+    None after a pair) and ``buf``, the buffer before its pass. Returns
+    ``(calls, bwt)``."""
+    from rust_msbwt_tpu_torch.ops import bcr, lf
+
+    calls, state = [], {}
+
+    def merge(old, q, v, active, **k):
+        out = merge_insert_slots(old, q, v, active, **k)
+        state["buf"] = out[0]
+        return out
+
+    def spy(j, tab, cap, nst, cols, lengths, by_len, acts, P, counts, prev_v, *, order=None):
+        if keep is None or keep(len(calls), len(acts)):
+            clone = lambda x: None if x is None else x.clone()  # noqa: E731
+            buf = torch.full((cap,), rank.PAD, dtype=torch.uint8)  # PAD past the last pass's
+            buf[: state["buf"].shape[0]] = state["buf"]
+            calls.append(dict(j=j, tab=tab.clone(), cap=cap, nst=nst, cols=cols, lengths=lengths,
+                              by_len=by_len, acts=np.array(acts), P=P.clone(),
+                              counts=counts.clone(), prev_v=prev_v.clone(), order=clone(order),
+                              buf=buf))
+        else:
+            calls.append(None)
+        return lf.lf_group_plain(j, tab, cap, nst, cols, lengths, by_len, acts, P, counts, prev_v,
+                                 order)
+
+    monkeypatch.setenv("MSBWT_TPU_RADIX", "2")
+    with monkeypatch.context() as m:
+        m.setattr(bcr, "lf_group", spy)
+        idx, _ = build_msbwt_with_index(reads, lengths, sorted_insert, device="cpu",
+                                        merge=merge, **kw)
+    return calls, idx.bwt[: idx.n]
+
+
+def lf_group_args(call, dev):
+    """``lf_group``'s positional arguments and its ``order`` for a captured
+    call, on ``dev``."""
+    to = lambda x: None if x is None else x.to(dev)  # noqa: E731
+    return ((call["j"], to(call["tab"]), call["cap"], call["nst"], to(call["cols"]),
+             to(call["lengths"]), to(call["by_len"]), call["acts"], to(call["P"]),
+             to(call["counts"]), to(call["prev_v"])), to(call["order"]))
 
 
 LF_WALK_KINDS = ["many", "aligned"]
@@ -1173,21 +1257,81 @@ def test_lf_kernels_reject_bad_input(cuda):
 @pytest.mark.parametrize("radix", [1, 2])
 def test_build_counts_lf_stage_launches(cuda, monkeypatch, radix):
     """A build on the card takes one LF-step call a pass after stage 1: L
-    lf_stage launches at radix 1; at radix 2 one lf_pair call a column pair
-    and an lf_stage launch for an odd last column; none of the walks; its
-    BWT and table equal the CPU's plain path."""
-    from rust_msbwt_tpu_torch.ops.lf import lf_pair, lf_stage, lf_walk_launches
+    lf_stage launches at radix 1; at radix 2 the schedule's (one lf_pair
+    call a column pair, one lf_group call a column group of the ragged
+    reads' tail, an lf_stage launch for a bucket's last column alone);
+    none of the walks; its BWT and table equal the CPU's plain path."""
+    from rust_msbwt_tpu_torch.ops import bcr
+    from rust_msbwt_tpu_torch.ops.lf import lf_group, lf_pair, lf_stage, lf_walk_launches
 
     monkeypatch.setenv("MSBWT_TPU_RADIX", str(radix))
     reads, lengths = _ragged(1500, 71)
-    L = reads.shape[1]
-    before, pairs, walks = lf_stage.launches, lf_pair.launches, lf_walk_launches()
+    N, L = lengths.size, reads.shape[1]
+    steps = bcr.group_schedule(
+        bcr.pair_buckets(bcr.bucket_schedule(0, N, L, int(lengths.sum()) + N, 128), L),
+        bcr.active_counts(lengths, L), N)
+    ks = [k for _, k, _ in steps] if radix == 2 else [1] * L
+    before = (lf_stage.launches, lf_pair.launches, lf_group.launches, lf_group.columns)
+    walks = lf_walk_launches()
     idx, packed = build_msbwt_with_index(reads, lengths, device=cuda)
-    assert lf_stage.launches - before == (L if radix == 1 else L % 2)
-    assert lf_pair.launches - pairs == (0 if radix == 1 else L // 2)
+    assert lf_stage.launches - before[0] == ks.count(1)
+    assert lf_pair.launches - before[1] == ks.count(2)
+    assert lf_group.launches - before[2] == sum(k > 2 for k in ks) > (radix - 2)
+    assert lf_group.columns - before[3] == sum(k for k in ks if k > 2)
     assert lf_walk_launches() == walks
     idx_c, packed_c = build_msbwt_with_index(reads, lengths, device="cpu")
     assert torch.equal(idx.bwt.cpu(), idx_c.bwt) and torch.equal(packed.table.cpu(), packed_c.table)
+
+
+@pytest.mark.parametrize("shape", list(GROUP_SHAPES))
+def test_lf_group_kernel_matches_plain(cuda, monkeypatch, shape):
+    """Every column group of a CPU build of ragged reads (gamma lengths at
+    mean 150, the benchmark's long-read shape cut; a thin tail of 48
+    columns; a group of three columns), through the kernels and through
+    ``lf_group_plain`` on the same CUDA tensors: every output equal, one
+    call and its columns counted each time, after a pair (the order sorted
+    in the call) and after a group (the order handed on)."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_group, lf_group_plain
+
+    calls, _ = group_captures(*ragged_reads(*GROUP_SHAPES[shape]), monkeypatch)
+    assert any(c["order"] is None for c in calls)
+    assert shape != "k3" or min(len(c["acts"]) for c in calls) == 3
+    for c in calls:
+        args, order = lf_group_args(c, cuda)
+        before = (lf_group.launches, lf_group.columns)
+        got = lf_group(*args, order=order)
+        want = lf_group_plain(*args, order)
+        torch.cuda.synchronize()
+        assert (lf_group.launches, lf_group.columns) == (before[0] + 1,
+                                                         before[1] + len(c["acts"]))
+        assert [g.dtype for g in got] == [w.dtype for w in want]
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_unforced_ragged_build_takes_groups(cuda, monkeypatch):
+    """A one-shot build of 400 gamma-length long reads (mean 1,500 bp,
+    radix 2 by the rule, unforced) runs its schedule's groups through
+    ``lf_group`` (its calls and columns counted) and one merge pass a step,
+    and equals the forced radix-1 build on the card, BWT and table."""
+    from rust_msbwt_tpu_torch.ops import bcr
+    from rust_msbwt_tpu_torch.ops.lf import lf_group
+
+    reads, lengths = ragged_reads(400, 1500, 1300, 23)
+    N, L = lengths.size, reads.shape[1]
+    n_cap = int(lengths.sum()) + N
+    monkeypatch.delenv("MSBWT_TPU_RADIX", raising=False)
+    assert bcr.build_radix(n_cap, N) == 2
+    steps = bcr.group_schedule(bcr.pair_buckets(bcr.bucket_schedule(0, N, L, n_cap, 128), L),
+                               bcr.active_counts(lengths, L), N)
+    groups = [k for _, k, _ in steps if k > 2]
+    before = (merge_insert.launches, lf_group.launches, lf_group.columns)
+    idx, packed = build_msbwt_with_index(reads, lengths, device=cuda)
+    torch.cuda.synchronize(cuda)
+    assert (merge_insert.launches - before[0], lf_group.launches - before[1],
+            lf_group.columns - before[2]) == (1 + len(steps), len(groups), sum(groups))
+    monkeypatch.setenv("MSBWT_TPU_RADIX", "1")
+    idx1, packed1 = build_msbwt_with_index(reads, lengths, device=cuda)
+    assert torch.equal(idx.bwt, idx1.bwt) and torch.equal(packed.table, packed1.table)
 
 
 def test_unforced_append_takes_radix2(cuda, monkeypatch):

@@ -129,8 +129,9 @@ def test_build_passes_one_scratch_to_every_column(radix, monkeypatch):
     """The stage loop's wiring of lf_stage's scratch: one build passes one
     zeroed int32 [8] scratch to every column (L ``lf_stage`` calls at radix
     1; at ``MSBWT_TPU_RADIX=2`` one ``lf_pair`` call a column pair and an
-    ``lf_stage`` call for an odd last column), a second build its own; both
-    BWTs equal the JAX package's build of the same reads."""
+    ``lf_stage`` call for a bucket's last column alone, the schedule's; its
+    column groups take no scratch), a second build its own; both BWTs equal
+    the JAX package's build of the same reads."""
     monkeypatch.setenv("MSBWT_TPU_RADIX", str(radix))
     seen = []
 
@@ -149,8 +150,11 @@ def test_build_passes_one_scratch_to_every_column(radix, monkeypatch):
         reads, lengths = bcr.encode_reads(reads_l)
         seen.clear()
         idx, _ = bcr.build_msbwt_with_index(reads, lengths, device="cpu")
-        L = reads.shape[1]
-        assert len(seen) == (L if radix == 1 else -(-L // 2))
+        N, L = lengths.size, reads.shape[1]
+        steps = bcr.group_schedule(
+            bcr.pair_buckets(bcr.bucket_schedule(0, N, L, int(lengths.sum()) + N, 128), L),
+            bcr.active_counts(lengths, L), N)
+        assert len(seen) == (L if radix == 1 else sum(k <= 2 for _, k, _ in steps))
         assert all(t is seen[0] for t in seen)
         assert seen[0].dtype == torch.int32 and tuple(seen[0].shape) == (8,)
         assert not seen[0].any()

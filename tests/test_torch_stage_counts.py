@@ -20,15 +20,20 @@ def _ragged(rng, n, width):
     return reads, lengths
 
 
-def _schedule_sum(n0, lengths, radix):
+def _schedule_sum(n0, lengths, radix, groups=True):
     """Stage 1 at the first bucket's capacity, then a pass a column (radix
-    1) or a pair (radix 2, an odd last stage alone) at its bucket's."""
+    1), or at radix 2 a pass a step of the schedule with column groups
+    (``groups``) or of the pairs alone (an odd last stage alone), at its
+    bucket's."""
     N, L = len(lengths), int(lengths.max())
     n_cap = n0 + int(lengths.sum()) + N
     sched = bcr.bucket_schedule(n0, N, L, n_cap, 128)
-    if radix == 2:
-        sched = bcr.pair_buckets(sched, L)
-    return sched[0][2] + sum(-(-(b - a) // radix) * c for a, b, c in sched)
+    if radix == 1:
+        return sched[0][2] + sum((b - a) * c for a, b, c in sched)
+    sched = bcr.pair_buckets(sched, L)
+    steps = (bcr.group_schedule(sched, bcr.active_counts(lengths, L), N) if groups
+             else bcr.pair_steps(sched))
+    return sched[0][2] + sum(c for _, _, c in steps)
 
 
 def _counted_build(reads, lengths, **kw):
@@ -52,7 +57,9 @@ def _counted_build(reads, lengths, **kw):
 def test_counters_add_the_schedules_capacities_and_inserts(monkeypatch, kind, radix):
     """Every pass's capacity, recorded by the merge it calls, sums to what
     ``merge_streamed`` gained over the build and to the schedule's sum; the
-    count comes once a build, not a pass, and the build inserts n_cap - n0."""
+    count comes once a build, not a pass, and the build inserts n_cap - n0.
+    At radix 2 the ragged reads' tail runs in two column groups (of 4 and 5
+    columns): 7 passes, which stream less than the pairs' 10 would."""
     monkeypatch.setenv("MSBWT_TPU_RADIX", radix)
     rng = np.random.default_rng(11)
     reads, lengths = _ragged(rng, 30, 17)
@@ -65,14 +72,18 @@ def test_counters_add_the_schedules_capacities_and_inserts(monkeypatch, kind, ra
     idx, caps, gained = _counted_build(reads, lengths, **kw)
     assert gained == sum(caps) == _schedule_sum(n0, lengths, int(radix))
     assert idx.n - n0 == int(lengths.sum()) + 30
-    passes = 1 + (17 + 1) // 2 if radix == "2" else 1 + 17
+    passes = 1 + 6 if radix == "2" else 1 + 17
     assert len(caps) == passes
+    if radix == "2":
+        assert gained == {"one_shot": 1920, "append": 2816}[kind]
+        assert gained < _schedule_sum(n0, lengths, 2, groups=False)
 
 
 def test_streamed_is_the_schedules_sum():
     """A one-shot build of 50 long ragged reads (radix 2 by the port's own
-    rule, growing buckets, an odd last stage) adds its schedule's sum,
-    which a radix-1 build of the same reads exceeds."""
+    rule, growing buckets, the tail past the shortest read's 1,001 columns
+    in column groups: 395 columns in groups) adds its schedule's sum, which
+    the pairs alone and a radix-1 build of the same reads exceed."""
     rng = np.random.default_rng(7)
     lengths = rng.integers(1000, 1602, 50).astype(np.int32)
     lengths[0] = 1601
@@ -82,8 +93,9 @@ def test_streamed_is_the_schedules_sum():
     n_cap = int(lengths.sum()) + 50
     assert bcr.build_radix(n_cap, 50) == 2 and len(bcr.bucket_schedule(0, 50, 1601, n_cap, 128)) > 1
     _, caps, gained = _counted_build(reads, lengths)
-    assert gained == sum(caps) == _schedule_sum(0, lengths, 2)
-    assert len(caps) == 1 + 800 + 1  # stage 1, the pairs, the odd last stage
+    assert gained == sum(caps) == _schedule_sum(0, lengths, 2) == 25_794_816
+    assert len(caps) == 682  # stage 1, then the schedule's pairs and groups
+    assert gained < _schedule_sum(0, lengths, 2, groups=False) == 33_735_936
     assert _schedule_sum(0, lengths, 1) > gained
 
 
