@@ -27,8 +27,8 @@
 // of a position that the step before computed; the tables (379 MB at 505M
 // symbols) are many times the 50 MB L2, so nearly every read goes to device
 // memory in whole 32 B sectors (three of a row: its occurrence lanes and
-// its three bit planes). Each walk's form is the fastest of those that
-// tools/walk_forms.py times at the paths' shapes on an H100 (PERF.md):
+// its three bit planes). Each walk's form is the fastest of the forms
+// timed at the paths' shapes on an H100 (PERF.md §6, forms tried):
 //
 // * The cyclic and extract walks: a quad (four lanes of a warp) a walker,
 //   each lane loading whole 16 B pieces of the walker's row, so one
@@ -237,10 +237,11 @@ lf_stage_kernel(const int32_t* __restrict__ table, const uint8_t* __restrict__ v
 //               that tile's bk entries; the carry, column j + 1's counts
 //               through the scratch into counts_out
 // A slot outside [0, cap] (a caller's error) is left out of every rank.
-// tools/pair_forms.py times the forms this one was chosen from (PERF.md):
-// loading both rows an old position can lie in before the compare loop, a
-// quad a slot, the scans at the counting kernels' end or as kernels of
-// their own, launch bounds.
+// The forms this one was chosen from (PERF.md §6, forms tried): loading
+// both rows an old position can lie in before the compare loop (80
+// registers, a row loaded that is not used), a quad a slot, the scans at
+// the counting kernels' end or as kernels of their own (the rank kernels
+// scan at their start), launch bounds; each was slower.
 
 constexpr int kPairMaxShift = 15;                 // largest slot tile: 32K positions
 constexpr int kPairMinShift = 7;                  // smallest: 128
@@ -655,9 +656,8 @@ __device__ __forceinline__ void rank_tiles(const Pol& pol, int64_t n_tiles, int 
 // pair_rank1's tiles, the q1 tiles: a tile's six symbol prefixes are the
 // active slots of each symbol below it, their sum its start, and a slot's
 // old position q1 - start - all; its second rank reads that row after the
-// tile's ranks (rank_at). kWait: the prefixes are scanned in the same
-// launch (head_scan), so wait for them.
-template <bool kWait>
+// tile's ranks (rank_at). The prefixes are scanned in the same launch
+// (head_scan), so wait for them.
 struct Rank1 {
   using Entry = int2;
   static constexpr int kPosShift = 4;
@@ -670,7 +670,7 @@ struct Rank1 {
   __device__ int2 entry(int64_t t, int idx) const { return bucket_get(b1, t, idx); }
   __device__ int key(const int2& e) const { return e.y; }
   __device__ void wait(int64_t t0, int64_t t1) const {
-    if (kWait) wait_chunks(a.flags1, t0, t1, a.n_tiles + 1, a.chunks);
+    wait_chunks(a.flags1, t0, t1, a.n_tiles + 1, a.chunks);
   }
 
   // the tile's place: the active slots below it
@@ -697,30 +697,22 @@ struct Rank1 {
 };
 
 // Each q1 tile: each active read's inv1 and inb, its second rank at
-// old_pos, q2 into q[N + i] where active2 and into its tile's bucket. With
-// kHead, the q1 tile counts to prefixes by symbol first (head_scan; the
-// package's form: tools/pair_forms.py scans them elsewhere in its others).
-template <bool kHead>
-__device__ __forceinline__ void pair_rank1_body(const PairArgs& a) {
+// old_pos, q2 into q[N + i] where active2 and into its tile's bucket; the
+// q1 tile counts to prefixes by symbol first (head_scan). At most 64
+// registers (four blocks an SM): faster than no bound and than 42 (PERF.md
+// §6, forms tried).
+__global__ void __launch_bounds__(kThreads, 4) pair_rank1_kernel(const PairArgs a) {
   __shared__ int s_c[kSyms];  // the C array after column j
   load_c(s_c, a.counts1, a.nst);
-  const int block = kHead ? head_scan<kSyms, kRow1, 1, 1>(a.rows1, a.n_tiles + 1, a.agg1,
-                                                          a.flags1, a.ctr + kTicket1, a.chunks)
-                          : (int)blockIdx.x;
+  const int block = head_scan<kSyms, kRow1, 1, 1>(a.rows1, a.n_tiles + 1, a.agg1, a.flags1,
+                                                  a.ctr + kTicket1, a.chunks);
   if (block < 0) return;
   __syncthreads();
-  const Rank1<kHead> pol{a, buckets1(a), buckets2(a), s_c};
-  rank_tiles<kSyms>(pol, a.n_tiles, block, gridDim.x - (kHead ? a.chunks : 0));
-}
-
-// At most 64 registers (four blocks an SM): faster than no bound and than
-// 42 (tools/pair_forms.py).
-__global__ void __launch_bounds__(kThreads, 4) pair_rank1_kernel(const PairArgs a) {
-  pair_rank1_body<true>(a);
+  const Rank1 pol{a, buckets1(a), buckets2(a), s_c};
+  rank_tiles<kSyms>(pol, a.n_tiles, block, gridDim.x - a.chunks);
 }
 
 // pair_rank2's tiles, the q2 tiles: a tile's start is its row's prefix.
-template <bool kWait>
 struct Rank2 {
   using Entry = int32_t;
   static constexpr int kPosShift = 0;
@@ -730,7 +722,7 @@ struct Rank2 {
 
   __device__ int count(int64_t t) const { return __ldcg(a.rows2 + t * kRow2); }
   __device__ void wait(int64_t t0, int64_t t1) const {
-    if (kWait) wait_chunks(a.flags2, t0, t1, a.n_tiles + 1, a.chunks);
+    wait_chunks(a.flags2, t0, t1, a.n_tiles + 1, a.chunks);
   }
   __device__ int32_t entry(int64_t t, int idx) const { return bucket_get(b2, t, idx); }
   __device__ int key(int32_t e) const { return e & mask; }
@@ -741,21 +733,14 @@ struct Rank2 {
   }
 };
 
-// Each q2 tile: each active2 read's inv2, and bk[inv2] = q2 - inv2. With
-// kHead, the q2 tile counts to prefixes first (head_scan; the last row's,
-// m2, the total).
-template <bool kHead>
-__device__ __forceinline__ void pair_rank2_body(const PairArgs& a) {
-  const int block = kHead ? head_scan<1, kRow2, 0, 1>(a.rows2, a.n_tiles + 1, a.agg2, a.flags2,
-                                                      a.ctr + kTicket2, a.chunks)
-                          : (int)blockIdx.x;
-  if (block < 0) return;
-  const Rank2<kHead> pol{a, buckets2(a), (1 << a.shift) - 1};
-  rank_tiles<1>(pol, a.n_tiles, block, gridDim.x - (kHead ? a.chunks : 0));
-}
-
+// Each q2 tile: each active2 read's inv2, and bk[inv2] = q2 - inv2; the q2
+// tile counts to prefixes first (head_scan; the last row's, m2, the total).
 __global__ void __launch_bounds__(kThreads) pair_rank2_kernel(const PairArgs a) {
-  pair_rank2_body<true>(a);
+  const int block = head_scan<1, kRow2, 0, 1>(a.rows2, a.n_tiles + 1, a.agg2, a.flags2,
+                                              a.ctr + kTicket2, a.chunks);
+  if (block < 0) return;
+  const Rank2 pol{a, buckets2(a), (1 << a.shift) - 1};
+  rank_tiles<1>(pol, a.n_tiles, block, gridDim.x - a.chunks);
 }
 
 // Every read: f1 = q1 + #{k < m2: bk[k] <= q1} into q[i] (0 where active1
@@ -1502,12 +1487,12 @@ lf_array_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ s
   *reinterpret_cast<int4*>(lf + p0) = make_int4(out[0], out[1], out[2], out[3]);
 }
 
-// The read-length walk on the LF array, W walkers a thread (walkers
-// thread + b * threads for b < W: W loads in flight a thread, and every
-// walker of a long-read set resident at once): walker i from '$' rotation i
-// until LF(pos) < C[1] (the symbol at pos is '$'), at most n steps; its
-// steps are the string's length. A walk that does not close sets the flag.
-template <int W>
+// The read-length walk on the LF array, kChase walkers a thread (walkers
+// thread + b * threads for b < kChase: kChase loads in flight a thread, and
+// every walker of a long-read set resident at once): walker i from '$'
+// rotation i until LF(pos) < C[1] (the symbol at pos is '$'), at most n
+// steps; its steps are the string's length. A walk that does not close sets
+// the flag.
 __global__ void __launch_bounds__(kThreads)
 lf_chase_lengths_kernel(const int32_t* __restrict__ lf, const int32_t* __restrict__ starts,
                         int32_t* __restrict__ lengths_out, int32_t* __restrict__ flag,
@@ -1515,11 +1500,11 @@ lf_chase_lengths_kernel(const int32_t* __restrict__ lf, const int32_t* __restric
   const int64_t t0 = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   const int dollars = __ldg(starts + 1);
-  int pos[W];
-  int64_t len[W];
-  bool live[W], closed[W];
+  int pos[kChase];
+  int64_t len[kChase];
+  bool live[kChase], closed[kChase];
 #pragma unroll
-  for (int b = 0; b < W; ++b) {
+  for (int b = 0; b < kChase; ++b) {
     const int64_t i = t0 + b * stride;
     pos[b] = (int)i;
     len[b] = 0;
@@ -1527,12 +1512,12 @@ lf_chase_lengths_kernel(const int32_t* __restrict__ lf, const int32_t* __restric
     live[b] = i < n_strings && n > 0;
   }
   for (bool any = true; any;) {
-    int next[W];
+    int next[kChase];
 #pragma unroll
-    for (int b = 0; b < W; ++b) next[b] = live[b] ? __ldg(lf + pos[b]) : 0;
+    for (int b = 0; b < kChase; ++b) next[b] = live[b] ? __ldg(lf + pos[b]) : 0;
     any = false;
 #pragma unroll
-    for (int b = 0; b < W; ++b) {
+    for (int b = 0; b < kChase; ++b) {
       if (!live[b]) continue;
       if (next[b] < dollars) {
         closed[b] = true;
@@ -1545,7 +1530,7 @@ lf_chase_lengths_kernel(const int32_t* __restrict__ lf, const int32_t* __restric
     }
   }
 #pragma unroll
-  for (int b = 0; b < W; ++b) {
+  for (int b = 0; b < kChase; ++b) {
     const int64_t i = t0 + b * stride;
     if (i >= n_strings) continue;
     lengths_out[i] = (int32_t)len[b];
@@ -1765,7 +1750,7 @@ int msbwt_lf_walk_lengths(const void* table, const void* starts, void* lf, void*
     lf_array_kernel<<<(unsigned)((lanes + kThreads - 1) / kThreads), kThreads, 0, st>>>(
         (const int32_t*)table, (const int32_t*)starts, (int32_t*)lf, (int32_t*)flag, rows);
   if (n_strings > 0)
-    lf_chase_lengths_kernel<kChase>
+    lf_chase_lengths_kernel
         <<<(unsigned)((n_strings + kChase * kThreads - 1) / (kChase * kThreads)), kThreads, 0,
            st>>>((const int32_t*)lf, (const int32_t*)starts, (int32_t*)lengths_out,
                  (int32_t*)flag, n_strings, n);

@@ -34,10 +34,10 @@
 // lane that has left; a lane past its query's length, or past the end of
 // the batch, loads nothing and keeps its bound. A packed group holds two
 // queries and issues both rows' loads before it uses either; a pair group
-// holds one and its loads allocate no L1 line. tools/query_forms.py times
-// these forms against the others tried (one, two or four queries a group,
-// either load policy, other register budgets, persistent groups that take
-// a new query as soon as one is done, one thread a query).
+// holds one and its loads allocate no L1 line. These forms were timed
+// against the others tried (one, two or four queries a group, either load
+// policy, other register budgets, persistent groups that take a new query
+// as soon as one is done, one thread a query; PERF.md §6, forms tried).
 //
 // The packed tier reads the PackedOccIndex row (rank.cuh; the rank that
 // lf.cu's rank_at takes, cooperatively here): lane 0 of a quad the
@@ -143,42 +143,52 @@ __device__ __forceinline__ uint4 and4(const uint4& a, const uint4& b) {
   return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
 }
 
-// Q queries a group, interleaved: every row load of a step is issued
-// before any is used. The groups of a warp step together until the warp's
-// longest query is done (a lane past its query's end loads nothing).
-template <int Q, bool kL1>
+// The kept forms (the others timed: PERF.md §6, forms tried): two
+// interleaved queries a group whose row loads go through L1 for the packed
+// tier (at least one block an SM: ptxas keeps 56 registers and issues both
+// queries' loads ahead of the shuffles), one query a group whose row loads
+// allocate no L1 line for the pair tier (eight blocks an SM: 32 registers,
+// 256 queries in flight an SM).
+constexpr int kPackedQueries = 2;
+constexpr bool kPackedL1 = true;
+constexpr int kPairQueries = 1;
+constexpr bool kPairL1 = false;
+
+// kPackedQueries queries a group, interleaved: every row load of a step is
+// issued before any is used. The groups of a warp step together until the
+// warp's longest query is done (a lane past its query's end loads nothing).
 __global__ void __launch_bounds__(kThreads, 1) kmer_ranges_packed_kernel(const QueryArgs a) {
   __shared__ int s_starts[kStarts];
   if (threadIdx.x < kStarts) s_starts[threadIdx.x] = a.starts[threadIdx.x];
   __syncthreads();
   const Lane l = lane_of();
-  int end[Q], bound[Q];
-  const uint8_t* km[Q];
+  int end[kPackedQueries], bound[kPackedQueries];
+  const uint8_t* km[kPackedQueries];
   int last = 0;
 #pragma unroll
-  for (int k = 0; k < Q; ++k) {
-    km[k] = seed(a, l.upper, l.group * Q + k, end[k], bound[k]);
+  for (int k = 0; k < kPackedQueries; ++k) {
+    km[k] = seed(a, l.upper, l.group * kPackedQueries + k, end[k], bound[k]);
     last = max(last, end[k]);
   }
   // lane 0 of a quad loads the occurrence piece of the symbol, lanes 1..3
   // plane j - 1
   const unsigned plane = max(l.j - 1, 0);
   for (int t = a.cache_k; __any_sync(kFull, t < last); ++t) {
-    int s[Q];
-    int4 v[Q];
+    int s[kPackedQueries];
+    int4 v[kPackedQueries];
 #pragma unroll
-    for (int k = 0; k < Q; ++k) {
+    for (int k = 0; k < kPackedQueries; ++k) {
       const bool act = t < end[k];
       s[k] = act ? km[k][a.K - 1 - t] : 0;
       v[k] = make_int4(0, 0, 0, 0);
       if (act) {
         const int4* row =
             reinterpret_cast<const int4*>(a.table + (int64_t)(bound[k] >> kBinShift) * kRow);
-        v[k] = row_piece<kL1>(row + (l.j == 0 ? s[k] >> 2 : kPackedPlane + plane));
+        v[k] = row_piece<kPackedL1>(row + (l.j == 0 ? s[k] >> 2 : kPackedPlane + plane));
       }
     }
 #pragma unroll
-    for (int k = 0; k < Q; ++k) {
+    for (int k = 0; k < kPackedQueries; ++k) {
       const uint4 x = l.j == 0 ? ones4() : plane_match(v[k], 0u - ((s[k] >> plane) & 1u));
       const int c = quad_rank(x, l.j == 0 ? lane_of4(v[k], s[k] & 3) : 0,
                               bound[k] & kBinMask, l.j);
@@ -186,13 +196,12 @@ __global__ void __launch_bounds__(kThreads, 1) kmer_ranges_packed_kernel(const Q
     }
   }
 #pragma unroll
-  for (int k = 0; k < Q; ++k) {
-    const int64_t q = l.group * Q + k;
+  for (int k = 0; k < kPackedQueries; ++k) {
+    const int64_t q = l.group * kPackedQueries + k;
     if (q < a.B && l.j == 0) (l.upper ? a.out1 : a.out0)[q] = bound[k];
   }
 }
 
-template <int Q, bool kL1>
 __global__ void __launch_bounds__(kThreads, 8) kmer_counts_pair_kernel(const QueryArgs a) {
   __shared__ int s_starts[kStarts];
   __shared__ int s_d[kPairs];  // C[s1] + D[s1][s2] at s1 * 6 + s2
@@ -201,27 +210,28 @@ __global__ void __launch_bounds__(kThreads, 8) kmer_counts_pair_kernel(const Que
     s_d[threadIdx.x] = a.starts[threadIdx.x / kSyms] + a.dmat[threadIdx.x];
   __syncthreads();
   const Lane l = lane_of();
-  int end[Q], bound[Q], other[Q];  // other: the group's other bound
-  const uint8_t* km[Q];
+  int end[kPairQueries], bound[kPairQueries];
+  int other[kPairQueries];  // the group's other bound
+  const uint8_t* km[kPairQueries];
 #pragma unroll
-  for (int k = 0; k < Q; ++k) {
-    km[k] = seed(a, l.upper, l.group * Q + k, end[k], bound[k]);
+  for (int k = 0; k < kPairQueries; ++k) {
+    km[k] = seed(a, l.upper, l.group * kPairQueries + k, end[k], bound[k]);
     other[k] = __shfl_xor_sync(kFull, bound[k], 4);
   }
   for (int t = a.cache_k;; t += 2) {
-    bool act[Q], two[Q];
+    bool act[kPairQueries], two[kPairQueries];
     bool any = false;
 #pragma unroll
-    for (int k = 0; k < Q; ++k) {
+    for (int k = 0; k < kPairQueries; ++k) {
       act[k] = t < end[k] && bound[k] != other[k];
       two[k] = t + 1 < end[k];  // two symbols left: s2, then s1
       any |= act[k];
     }
     if (!__any_sync(kFull, any)) break;
-    int code[Q], occ_lane[Q];
-    int4 va[Q], vb[Q];
+    int code[kPairQueries], occ_lane[kPairQueries];
+    int4 va[kPairQueries], vb[kPairQueries];
 #pragma unroll
-    for (int k = 0; k < Q; ++k) {
+    for (int k = 0; k < kPairQueries; ++k) {
       const int s2 = act[k] ? km[k][a.K - 1 - t] : 0;
       const int s1 = act[k] && two[k] ? km[k][a.K - 2 - t] : 0;
       int64_t b = bound[k] >> kBinShift;
@@ -239,12 +249,12 @@ __global__ void __launch_bounds__(kThreads, 8) kmer_counts_pair_kernel(const Que
       const int piece_b = occ_q ? (occ_lane[k] >> 2) + !two[k] : kPlanePiece + 4 + l.j;
       va[k] = vb[k] = make_int4(0, 0, 0, 0);
       if (act[k]) {
-        va[k] = row_piece<kL1>(row + piece_a);
-        if (two[k] ? l.j < 3 : l.j == 3) vb[k] = row_piece<kL1>(row + piece_b);
+        va[k] = row_piece<kPairL1>(row + piece_a);
+        if (two[k] ? l.j < 3 : l.j == 3) vb[k] = row_piece<kPairL1>(row + piece_b);
       }
     }
 #pragma unroll
-    for (int k = 0; k < Q; ++k) {
+    for (int k = 0; k < kPairQueries; ++k) {
       const bool occ_q = l.j == (two[k] ? 2 : 3);
       const int plane_a = l.j + (two[k] ? 0 : 3);
       uint4 x = occ_q && !two[k] ? ones4()
@@ -267,22 +277,11 @@ __global__ void __launch_bounds__(kThreads, 8) kmer_counts_pair_kernel(const Que
     }
   }
 #pragma unroll
-  for (int k = 0; k < Q; ++k) {
-    const int64_t q = l.group * Q + k;
+  for (int k = 0; k < kPairQueries; ++k) {
+    const int64_t q = l.group * kPairQueries + k;
     if (q < a.B && l.j == 0 && !l.upper) a.out0[q] = other[k] - bound[k];
   }
 }
-
-// The kept forms (tools/query_forms.py times the others): two interleaved
-// queries a group whose row loads go through L1 for the packed tier (at
-// least one block an SM: ptxas keeps 56 registers and issues both
-// queries' loads ahead of the shuffles), one query a group whose row loads
-// allocate no L1 line for the pair tier (eight blocks an SM: 32 registers,
-// 256 queries in flight an SM).
-constexpr int kPackedQueries = 2;
-constexpr bool kPackedL1 = true;
-constexpr int kPairQueries = 1;
-constexpr bool kPairL1 = false;
 
 // One group for each q queries, kThreads lanes a block.
 template <void (*Kernel)(QueryArgs)>
@@ -321,7 +320,7 @@ int msbwt_kmer_ranges_packed(const void* table, const void* starts, const void* 
   a.K = K;
   a.cache_k = cache_k;
   a.n = n;
-  return launch<kmer_ranges_packed_kernel<kPackedQueries, kPackedL1>>(a, kPackedQueries, stream);
+  return launch<kmer_ranges_packed_kernel>(a, kPackedQueries, stream);
 }
 
 // The pair tier's counts: as msbwt_kmer_ranges_packed over the pair table
@@ -344,7 +343,7 @@ int msbwt_kmer_counts_pair(const void* table2, const void* starts, const void* d
   a.K = K;
   a.cache_k = cache_k;
   a.n = n;
-  return launch<kmer_counts_pair_kernel<kPairQueries, kPairL1>>(a, kPairQueries, stream);
+  return launch<kmer_counts_pair_kernel>(a, kPairQueries, stream);
 }
 
 }  // extern "C"

@@ -30,6 +30,7 @@ from rust_msbwt_tpu_torch.ops.alphabet import convert_stoi, reverse_complement_i
 from rust_msbwt_tpu_torch.ops.bcr import build_msbwt
 
 from tests._data import GOLDEN_NPY
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 _ALT = {1: 2, 2: 3, 3: 5, 5: 1}
 

@@ -30,6 +30,7 @@ from rust_msbwt_tpu_torch.ops.rank import build_kmer_cache
 from rust_msbwt_tpu_torch.ops.rle import bytes_from_runs, runs_from_symbols
 
 from tests._data import GOLDEN_FA
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 
 def _reads(kind, seed):

@@ -15,6 +15,8 @@ import torch
 from rust_msbwt_tpu_torch.models.rle_bwt import RleBWT
 from rust_msbwt_tpu_torch.ops.rle import encode_symbols
 
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
+
 N_SYMBOLS, N_RUNS = 1_515_000_000, 95_000_000  # a 15M x 100 bp BWT
 H = RleBWT.QUERY_HEADROOM_BYTES
 

@@ -14,6 +14,7 @@ from rust_msbwt_tpu_torch.cli.build import main as build_main
 from rust_msbwt_tpu_torch.cli.query import main as query_main
 
 from tests._data import GOLDEN_FA, GOLDEN_NPY
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 
 def test_build_golden_byte_identity(tmp_path):

@@ -37,6 +37,8 @@ from rust_msbwt_tpu_torch.ops.rle import (
 from rust_msbwt_tpu_torch.utils.convert import dynamic_from_jax
 from rust_msbwt_tpu_torch.utils.npy import save_bwt_runs
 
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
+
 # two read-matrix shapes for the whole file (JAX compiles per shape):
 # base batch [40, <=24], extension batch [24, <=24]
 N_BASE, N_NEW, L = 40, 24, 24

@@ -26,6 +26,7 @@ from rust_msbwt_tpu_torch.ops.rle import bytes_from_runs, runs_from_symbols
 from rust_msbwt_tpu_torch.utils.npy import save_bwt_runs
 
 from tests._data import GOLDEN_NPY
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 
 @pytest.fixture(scope="module")

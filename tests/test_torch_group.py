@@ -22,6 +22,7 @@ from rust_msbwt_tpu_torch.ops.merge_insert import insert_maps, merge_insert_slot
 from rust_msbwt_tpu_torch.utils.oracle import naive_bwt
 from rust_msbwt_tpu_torch.utils.streaming import build_msbwt_streaming
 from test_torch_gpu import GROUP_SHAPES, group_captures, lf_group_args, ragged_reads
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 
 def _column_by_column(c):

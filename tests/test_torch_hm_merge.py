@@ -16,6 +16,8 @@ from rust_msbwt_tpu_torch.ops import merge
 from rust_msbwt_tpu_torch.ops.alphabet import convert_itos, convert_stoi
 from rust_msbwt_tpu_torch.utils import oracle
 
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
+
 
 def _bwt(strings):
     return np.asarray(convert_stoi(oracle.naive_bwt(strings)), np.uint8)

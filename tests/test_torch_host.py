@@ -22,6 +22,7 @@ from rust_msbwt_tpu_torch.ops import alphabet, rle
 from rust_msbwt_tpu_torch.utils import checks, fastx, native, npy
 
 from tests._data import GOLDEN_FA, GOLDEN_NPY
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 
 def _symbols(n, seed, run_len=4):

@@ -43,6 +43,7 @@ from test_torch_gpu import (
     lf_walk_calls,
     lf_walk_case,
 )
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 
 def _launches():

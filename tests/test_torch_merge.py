@@ -28,6 +28,7 @@ from rust_msbwt_tpu_torch.ops.merge_insert import (
 )
 from rust_msbwt_tpu_torch.utils.convert import state_from_jax_phys
 from test_torch_gpu import EDGE_KINDS, _edge_case
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 
 def _case(n_old, n_ins, extra, seed, frac_active=1.0, clustered_at=None):

@@ -34,6 +34,7 @@ from rust_msbwt_tpu_torch.utils.oracle import naive_bwt
 
 from tests._data import GOLDEN_FA, GOLDEN_NPY
 from tests._torch_dist_worker import run_ranks
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 _REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 WORLDS = [1, 2, 3, 4]

@@ -12,6 +12,8 @@ import torch
 from rust_msbwt_tpu_torch.ops import bcr
 from rust_msbwt_tpu_torch.utils import profiling as prof
 
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
+
 # the build entry's spans, in the order a call opens them
 SPANS = ["msbwt.build", "msbwt.prep.sort", "msbwt.prep.view", "msbwt.upload", "msbwt.stage1",
          "msbwt.buffers", "msbwt.base_counts", "msbwt.stage_loop", "msbwt.sync"]

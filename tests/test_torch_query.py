@@ -33,6 +33,7 @@ from rust_msbwt_tpu.ops import rank as jrank
 from rust_msbwt_tpu_torch.ops import packed_rank, pair_rank, query
 from rust_msbwt_tpu_torch.utils.convert import kmer_cache_from_numpy
 from test_torch_gpu import QUERY_KINDS, QUERY_SIZE_CASES, query_calls, query_case
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 
 def _launches():

@@ -39,6 +39,7 @@ from rust_msbwt_tpu_torch.utils.convert import (
 )
 
 from tests.test_rle_bwt import _PINNED
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 K_MAX = 21  # one k-mer matrix width for the whole file (JAX compiles per shape)
 

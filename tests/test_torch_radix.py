@@ -35,6 +35,7 @@ from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert_slots
 from rust_msbwt_tpu_torch.ops.rank import PAD
 from rust_msbwt_tpu_torch.utils.streaming import StreamingBuilder
 from test_torch_gpu import LF_PAIR_KINDS, lf_pair_args, lf_pair_case, pair_tile_rule
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 
 def _reads(kind, seed):

@@ -19,6 +19,8 @@ from rust_msbwt_tpu_torch.ops import packed_rank as pr
 from rust_msbwt_tpu_torch.ops import rank
 from rust_msbwt_tpu_torch.utils.convert import occ_index_from_numpy, packed_index_from_numpy
 
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
+
 SIZES = [0, 1, 127, 128, 129, 256, 1000, 4096]
 
 

@@ -10,6 +10,8 @@ from rust_msbwt_tpu_torch.ops import bcr
 from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert_slots
 from rust_msbwt_tpu_torch.utils.native import reads_to_cols_native
 
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
+
 
 def _ragged(rng, n, width):
     lengths = rng.integers(1, width + 1, n).astype(np.int32)

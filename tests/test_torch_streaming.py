@@ -25,6 +25,7 @@ from rust_msbwt_tpu_torch.ops import bcr
 from rust_msbwt_tpu_torch.utils.streaming import StreamingBuilder, build_msbwt_streaming
 
 from tests._data import GOLDEN_FA, GOLDEN_NPY
+from tests import _torch_cpu  # noqa: F401  (one torch thread a worker)
 
 L = 20  # one read-matrix width for the whole file (JAX compiles per shape)
 
