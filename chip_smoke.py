@@ -162,11 +162,15 @@ Phases:
  12f. column groups at the benchmark's long-read shape: ``ecoli-ont50x``'s
      15,472 read lengths over random bases built one-shot at the rule's
      radix (2; counts reset just before): its passes, pairs and groups those
-     of ``group_schedule``, its BWT == the build with the pairs alone; the
-     group holding column 30,000 held against ``lf_group_plain`` (timed
-     against its byte bound, its device time by kernel) and against the
-     pairs it replaces, replayed from the same buffer to the same buffer
-     and table (the pairs' LF steps, their passes, the group's one)
+     of ``group_schedule``, every group in the cluster form
+     (``lf_group.cluster``; both group kernels' registers, shared memory
+     and spills from ``-Xptxas -v``), its BWT == the build with the pairs
+     alone; with ``--parent``, whole builds timed in turns with the
+     parent's ``lf_group`` (each == this commit's); the group holding
+     column 30,000 held against ``lf_group_plain`` (timed against its byte
+     bound, its device time by kernel) and against the pairs it replaces,
+     replayed from the same buffer to the same buffer and table (the pairs'
+     LF steps, their passes, the group's one)
  13. one JSON line of kernel results (``merge_insert``, ``lf_stage``,
      ``lf_pair``, ``lf_group``, ``lf_walk``, ``kmer_ranges_packed``,
      ``kmer_counts_pair``),
@@ -221,6 +225,7 @@ PARENT = None  # --parent: the parent commit's loaded kernel library
 PARENT_LF = None  # --parent: the parent commit's ops/lf.py on that library
 PARENT_RACE_LF = None  # --parent: the same on a private copy of the library (phase 6c)
 PARENT_STEP2 = None  # --parent: the parent commit's radix-2 step (its ops/bcr.py)
+PTXAS = ""  # this commit's -Xptxas -v output, when the run built the library
 
 
 def log(msg: str) -> None:
@@ -870,7 +875,7 @@ def load_parent_kernels(parent):
     spec.loader.exec_module(mod)
     lines = mod.build().splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"(kmer_ranges_packed|kmer_counts_pair|lf_stage|lf_walk|pair_\w+?)_kernel"
+        m = re.search(r"(kmer_ranges_packed|kmer_counts_pair|lf_stage|lf_walk|pair_\w+?|\w*group)_kernel"
                       r"(ILi(\d)E)?", line)
         if "Compiling entry" in line and m:
             name = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
@@ -2397,30 +2402,47 @@ def group_bytes(torch, args) -> tuple:
     return 96 * rows + 7 * int(sum(args[7])) + 10 * args[8].numel() + 48, rows
 
 
-def group_split(torch, label, fn, args, reps=5) -> dict:
-    """``fn`` (``lf_group``) over ``reps`` calls under ``torch.profiler``: its
-    device milliseconds and device events a call, by kernel (launches
-    uncounted)."""
+def group_split(torch, label, fn, args, reps=5, kernel="cluster_group_kernel"):
+    """``fn`` (``lf_group``) over ``reps`` calls under ``torch.profiler``,
+    each followed by a one-element add, the control: the calls' device
+    milliseconds and device events a call, by kernel (launches uncounted).
+    With every control kernel read, ``kernel`` (the form the calls take)
+    must show one event a call. With some control kernels missing, the
+    profiler lost device events and the split is None: after phase 12f's
+    first build (4,797 cluster launches outside a profiler session) a
+    session in this process read no device event, and in a fresh process
+    2 of 5 calls' kernels after that build and the pairs-alone one, while
+    the benchmark's traced runs, one session over the window, read them."""
     import re
 
     from rust_msbwt_tpu_torch.utils.profiling import device_us, trace
 
+    ctl = torch.zeros(1, device=args[1].device)
     with uncounted(), tempfile.TemporaryDirectory() as d, trace(d) as prof:
         for _ in range(reps):
             fn(*args)
+            ctl.add_(1)
         torch.cuda.synchronize()
     by = {}
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA") and device_us(e) > 0:
-            m = re.search(r"group_kernel|[Mm]emset", e.key)
+            m = re.search(r"\w*group_kernel|[Mm]emset|elementwise", e.key)
             key = m.group(0) if m else e.key[:40]
             by[key] = by.get(key, 0.0) + device_us(e) * 1e-3 / reps
             by[key + " events"] = by.get(key + " events", 0) + e.count / reps
+    controls = by.pop("elementwise events", 0)
+    by.pop("elementwise", None)
+    if controls != 1:
+        log(f"[lf] lf_group split, {label}: the profiler read {controls:.1f} control kernels "
+            f"a call of 1, so it lost device events here; no split")
+        return None
     res = {"device_ms": sum(v for k, v in by.items() if not k.endswith(" events")),
            "events": sum(v for k, v in by.items() if k.endswith(" events")), "kernels": by}
     log(f"[lf] lf_group split, {label}: device {res['device_ms']:.4f} ms in "
         f"{res['events']:.1f} events a call ("
         + ", ".join(f"{k} {v:.4f}" for k, v in by.items() if not k.endswith(" events")) + ")")
+    check(by.get(kernel + " events") == 1,
+          f"{label}: the profiler read {by.get(kernel + ' events', 0)} {kernel} events a call")
     return res
 
 
@@ -2430,14 +2452,19 @@ def phase_group(torch, np, dev):
     232,075,995 bases) over random bases, built one-shot on the card at the
     rule's radix (2; counts reset just before): its merge passes and its
     ``lf_pair``, ``lf_stage`` and ``lf_group`` calls and grouped columns
-    those of ``group_schedule``, its BWT == the same build with the pairs
-    alone (``pair_steps``). The group holding column GROUP_COL is kept and
-    held against ``lf_group_plain`` (``hold``: its byte bound,
-    ``group_bytes``), its device time by kernel (``group_split``); then the
-    same columns replayed from the same buffer as the pairs it replaces
-    (``lf_pair``, an odd last column ``lf_stage``, a merge pass each) to the
-    buffer and table of the group's one pass, the pairs' LF steps and the
-    replay timed against the group and the group with its pass."""
+    those of ``group_schedule``, every group in the cluster form
+    (``lf.lf_group.cluster``, the form the library reports; the registers,
+    shared memory and spills of both group kernels logged from ``-Xptxas
+    -v``). The group holding column GROUP_COL is kept and held against
+    ``lf_group_plain`` (``hold``: its byte bound, ``group_bytes``), its
+    device time by kernel (``group_split``); then the same columns replayed
+    from the same buffer as the pairs it replaces (``lf_pair``, an odd last
+    column ``lf_stage``, a merge pass each) to the buffer and table of the
+    group's one pass, the pairs' LF steps and the replay timed against the
+    group and the group with its pass. Then the BWT == the same build with
+    the pairs alone (``pair_steps``) and, with ``--parent``, the whole
+    build timed in turns with the parent's ``lf_group`` (parent, new, new,
+    parent; each BWT and table == this commit's)."""
     from portbench.traffic.closed_loop_ragged import gamma_lengths
     from rust_msbwt_tpu_torch.ops import bcr, lf
     from rust_msbwt_tpu_torch.ops.merge_insert import merge_insert
@@ -2464,14 +2491,24 @@ def phase_group(torch, np, dev):
                          order.clone()))
         return real_group(*args, order=order)
 
+    lines = PTXAS.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and "group_kernel" in line:
+            log("[group] ptxas " + line.split("'")[1] + ": " + "; ".join(
+                x.split(":", 1)[-1].strip() for x in lines[i + 1: i + 4]
+                if "Used" in x or "spill" in x))
     torch.cuda.synchronize()
     reset_counts()
-    lf.lf_group.columns = 0
+    lf.lf_group.columns = lf.lf_group.cluster = 0
     with swapped(bcr, "lf_group", spy):
         build_s, (idx, packed) = timed(lambda: bcr.build_msbwt_with_index(reads, lengths,
                                                                           device=dev))
     c = path_counts()
-    columns = lf.lf_group.columns
+    columns, cluster = lf.lf_group.columns, lf.lf_group.cluster
+    max_n = lf.lf_group_cluster_max_n(dev)
+    log(f"[group] the cluster form takes N <= {max_n} here: {cluster} of {c['lf_group']} groups")
+    check(cluster == (c["lf_group"] if N <= max_n else 0),
+          f"{cluster} of {c['lf_group']} groups in the cluster form at N = {N} (limit {max_n})")
     log(f"[group] ecoli-ont50x's {N} read lengths ({n_cap} symbols, L = {L}): one-shot build "
         f"{build_s:.3f} s ({(n_cap - N) / build_s / 1e6:.2f} Mbases/s), merge kernel launches "
         f"{c['merge_insert']}, lf_group calls {c['lf_group']} carrying {columns} columns, "
@@ -2480,16 +2517,6 @@ def phase_group(torch, np, dev):
           == (1 + len(ks), ks.count(2), ks.count(1), len(ks) - ks.count(1) - ks.count(2),
               sum(k for k in ks if k > 2)),
           f"the ragged build's calls are not its schedule's: {c}, {columns} columns")
-    with swapped(bcr, "group_schedule", lambda b, a, n: bcr.pair_steps(b)), uncounted():
-        pairs_s, (idx2, packed2) = timed(lambda: bcr.build_msbwt_with_index(reads, lengths,
-                                                                           device=dev))
-    check(torch.equal(idx.bwt, idx2.bwt) and torch.equal(packed.table, packed2.table),
-          "the ragged build with groups != the same build with the pairs alone")
-    log(f"[group] the same build with the pairs alone ({1 + len(bcr.pair_steps(buckets))} "
-        f"passes): {pairs_s:.3f} s, BWT and table equal")
-    del idx, packed, idx2, packed2, reads
-    torch.cuda.empty_cache()
-
     (args, order), = kept
     j, tab, cap, nst, cols, lens, by_len, acts, P, counts, prev_v = args
     k = len(acts)
@@ -2499,7 +2526,8 @@ def phase_group(torch, np, dev):
     group = functools.partial(lf.lf_group, order=order)
     res = hold(torch, label, group, lf.lf_group_plain, args, bound, reps=10, plain_reps=1)
     res["rows"], res["columns"] = rows, k
-    res["split"] = group_split(torch, label, group, args)
+    res["split"] = group_split(torch, label, group, args,
+                               kernel="cluster_group_kernel" if N <= max_n else "group_kernel")
     res["us_a_column"] = res["ms"] * 1e3 / k  # event time: the call's memset and kernel
 
     # the same columns as the pairs it replaces, from the same buffer
@@ -2544,8 +2572,37 @@ def phase_group(torch, np, dev):
         f"calls' {pairs_ms:.3f} ms; with its one pass {res['group_pass_ms']:.3f} ms against "
         f"the pairs' {len(pair_args)} passes {res['replay_ms']:.3f} ms; "
         f"{res['us_a_column']:.2f} us a column")
+
+    with swapped(bcr, "group_schedule", lambda b, a, n: bcr.pair_steps(b)), uncounted():
+        pairs_s, (idx2, packed2) = timed(lambda: bcr.build_msbwt_with_index(reads, lengths,
+                                                                           device=dev))
+    check(torch.equal(idx.bwt, idx2.bwt) and torch.equal(packed.table, packed2.table),
+          "the ragged build with groups != the same build with the pairs alone")
+    log(f"[group] the same build with the pairs alone ({1 + len(bcr.pair_steps(buckets))} "
+        f"passes): {pairs_s:.3f} s, BWT and table equal")
+    turns_s = None
+    if PARENT_LF is not None:
+        builds = {}
+        for name, fn in (("parent", PARENT_LF.lf_group), ("new", lf.lf_group)):
+            def build(fn=fn):
+                with swapped(bcr, "lf_group", fn), uncounted():
+                    got, got_t = bcr.build_msbwt_with_index(reads, lengths, device=dev)
+                    torch.cuda.synchronize()
+                check(torch.equal(got.bwt, idx.bwt) and torch.equal(got_t.table, packed.table),
+                      "the ragged build through the parent's lf_group != this commit's")
+            builds[name] = build
+        turns_s = {"parent": [], "new": []}
+        for name in ("parent", "new", "new", "parent"):
+            turns_s[name].append(timed(builds[name])[0])
+        log(f"[group] whole builds in turns (parent, new, new, parent): parent "
+            f"{turns_s['parent']} s, new {turns_s['new']} s; parent / new "
+            f"{sum(turns_s['parent']) / sum(turns_s['new']):.3f}")
+    del idx, packed, idx2, packed2, reads
+    torch.cuda.empty_cache()
+
     res.update({"build_s": build_s, "pairs_build_s": pairs_s, "launches": c["lf_group"],
-                "columns_built": columns, "passes": c["merge_insert"]})
+                "columns_built": columns, "cluster": cluster, "cluster_max_n": max_n,
+                "passes": c["merge_insert"], "turns_s": turns_s})
     return res
 
 
@@ -2588,7 +2645,8 @@ def main(argv=None) -> int:
     log(ptxas.strip() or "(library up to date: not rebuilt)")
     log(f"[health] {json.dumps(session_health())}")
 
-    global PARENT, PARENT_LF, PARENT_RACE_LF, PARENT_STEP2
+    global PARENT, PARENT_LF, PARENT_RACE_LF, PARENT_STEP2, PTXAS
+    PTXAS = ptxas
     PARENT = load_parent_kernels(args.parent)
     PARENT_LF = load_parent_lf(args.parent, PARENT)
     PARENT_STEP2 = load_parent_step2(args.parent, PARENT_LF)
@@ -2734,13 +2792,13 @@ def main(argv=None) -> int:
         "max_abs_err": group["max_abs_err"],
         **{k: group[k] for k in ("ms", "plain_ms", "bound_ms", "rows", "us_a_column",
                                  "pair_calls", "pairs_ms", "replay_ms", "group_pass_ms",
-                                 "build_s", "pairs_build_s", "passes")},
+                                 "build_s", "pairs_build_s", "passes", "cluster",
+                                 "cluster_max_n", "turns_s")},
         "bound_by": "bytes",
         "library_ms": None,
         "group_columns": group["columns"],
-        "device_ms": group["split"]["device_ms"],
-        "device_events": group["split"]["events"],
-        "device_kernels": group["split"]["kernels"],
+        **({"device_ms": group["split"]["device_ms"], "device_events": group["split"]["events"],
+            "device_kernels": group["split"]["kernels"]} if group["split"] else {}),
     }, {
         "name": "lf_walk",
         "route": "cuda",

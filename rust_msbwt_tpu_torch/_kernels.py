@@ -115,11 +115,13 @@ def load():
             lib.msbwt_lf_pair_work_len.argtypes = [i64, i64]
             lib.msbwt_lf_group_work_len.restype = i64
             lib.msbwt_lf_group_work_len.argtypes = [i64, i64]
+            lib.msbwt_lf_group_cluster_max_n.restype = i64
+            lib.msbwt_lf_group_cluster_max_n.argtypes = []
             i32 = ctypes.c_int
             for name, args in (
                 ("msbwt_lf_stage", [vp] * 12 + [i64, i32, i32, vp]),
                 ("msbwt_lf_pair", [vp] * 14 + [i64, i64, i32, i32, vp]),
-                ("msbwt_lf_group", [vp] * 17 + [i64, i32, i32, i32, i32, vp]),
+                ("msbwt_lf_group", [vp] * 18 + [i64, i32, i32, i32, i32, vp]),
                 ("msbwt_lf_walk_cyclic", [vp] * 6 + [i64, i64, i32, vp]),
                 ("msbwt_lf_walk_lengths", [vp] * 5 + [i64, i64, vp]),
                 ("msbwt_lf_walk_extract", [vp] * 5 + [i64, i32, vp]),

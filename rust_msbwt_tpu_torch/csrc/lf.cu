@@ -76,6 +76,7 @@
 #include <stdint.h>
 
 #include <cooperative_groups.h>
+#include <mutex>
 
 #include "rank.cuh"
 #include "scan.cuh"
@@ -941,35 +942,73 @@ PairArgs pair_args(const void* table, const void* v1, const void* v2, const void
 // column takes the order of its reads' P from the caller (the last group's
 // last column, or one argsort after a pair).
 //
-// One cooperative launch a group (a memset of the scan's words before it):
-// a persistent grid, all of it resident, runs the group's columns in phases
-// parted by grid-wide barriers, so a column costs barriers, not launches:
-//   active       the columns' active reads (a binary search of the lengths
-//                in by_len order), once a group
-//   scan         the scan of I_t (of the caller's order at t = 0), 1,024
-//                entries a tile, the tiles chained by a decoupled look-back
-//                (scan.cuh's flagged words): each active read's old
-//                position x - #{I_t below x}, its same-symbol count and its
-//                slot's rank among the heads of its symbol; the column's
-//                counts row
-//   rank         a thread a read: q off one table row (rank_at), into the
-//                column's sorted slots at its rank (after the heads of a
-//                smaller symbol: the scan's last tile's totals); the
-//                symbols counted
-//   merge        a thread an entry of I_t or of the column: its place in
-//                I_{t+1} by a binary search of the other side (both sorted)
-//   final, carry q / v / active over the 2N ids; P, prev_v and counts after
-//                the group.
-// What bounds it: in a column of few reads, the barriers and the chain of
-// dependent loads in each phase (a table row, a binary search); in a wide
-// one, the rank's random table rows (96 B each, one a read a column, as
-// lf_pair's). The scan and the merge read and write ~9 B an insert, the set
-// of at most 2N inserts kept in L2. The work is O(N): no copy of the view.
-// Forms timed at the benchmark's shape (ecoli-ont50x's lengths, whole
-// builds in turns in one call on an H100; PERF.md): three kernel launches
-// a column, 6.22-6.59 s a build; this one, 5.86-6.19 s; the scan and the
-// rank fused into one phase with the merge's keys in shared memory,
-// 5.86-6.15 s, not worth its code; a warp-wide look-back, 6.26-6.62 s.
+// Two forms, both exact and both a single launch a group; msbwt_lf_group
+// picks one by N alone (cluster_max_n) and tells its caller which it
+// launched:
+//
+// * The cluster form (cluster_group_kernel), while 2N slots fit on chip:
+//   one thread-block cluster of kCluster CTAs carries the whole group, and
+//   the group's sorted insert set lives in the cluster's distributed shared
+//   memory, so a column's dependent steps are shared-memory reads and one or
+//   two hardware cluster barriers. I_t is split by index over the CTAs, each
+//   CTA a run of it in its own slice (double-buffered), and a column runs:
+//     scan   each CTA a block scan of its slice, by symbol and by active
+//            head, packed two counts a word; the heads' table rows
+//            prefetched; the CTA's totals pushed into every CTA's shared
+//            memory. In a column of at most kSparse reads each head also
+//            reads its row (rank_at) and pushes a record into every CTA:
+//            its rank plus the counts below it in its CTA, its place among
+//            its CTA's heads; barrier;
+//     rank   the totals of the CTAs before each added up locally. A column
+//            of at most kSparse reads: every CTA builds the column's sorted
+//            slots (q, key) from the records itself. A wider one: each head
+//            computes its slot q and its place l and writes (q, key) at l
+//            into every CTA's copy of the column; barrier;
+//     merge  each CTA merges its slice with the column's slots that fall
+//            after its first entry and up to the next CTA's first (two
+//            binary searches of its copy), along merge-path diagonals, into
+//            its own next slice: the slices grow apart and no barrier
+//            follows. A column that could overflow a slice merges into even
+//            slices in every CTA instead, behind a barrier.
+//   A column's symbols by read are read a column ahead and written into
+//   every CTA. The one global load on a column's chain is the table row.
+//   No look-back words, no memset, no polling. A cluster barrier costs
+//   ~0.7 us on an H100 (PERF.md), so a column of few reads takes one.
+// * The cooperative form (group_kernel), for larger N: a persistent grid,
+//   all of it resident, runs the group's columns in phases parted by
+//   grid-wide barriers, the insert set in global memory (L2):
+//     active       the columns' active reads (a binary search of the lengths
+//                  in by_len order), once a group
+//     scan         the scan of I_t (of the caller's order at t = 0), 1,024
+//                  entries a tile, the tiles chained by a decoupled look-back
+//                  (scan.cuh's flagged words, zeroed by a memset): each
+//                  active read's old position x - #{I_t below x}, its
+//                  same-symbol count and its slot's rank among the heads of
+//                  its symbol; the column's counts row
+//     rank         a thread a read: q off one table row (rank_at), into the
+//                  column's sorted slots at its rank (after the heads of a
+//                  smaller symbol: the scan's last tile's totals); the
+//                  symbols counted
+//     merge        a thread an entry of I_t or of the column: its place in
+//                  I_{t+1} by a binary search of the other side (both sorted)
+//     final, carry q / v / active over the 2N ids; P, prev_v and counts after
+//                  the group.
+//   A column there is a chain of L2 round trips (the look-back, the binary
+//   searches through __ldcg): ~16.7 us a column at ecoli-ont50x's shape.
+// Both forms compute the same integers in the same order of entries, so
+// their outputs are bit-equal (and equal lf_group_plain's). What bounds a
+// column of few reads is latency (barriers, dependent loads); in a wide one,
+// the rank's random table rows (96 B each, one a read a column, as
+// lf_pair's). The work is O(N): no copy of the view. Forms timed at the
+// benchmark's shape (ecoli-ont50x's lengths, whole builds in turns in one
+// call on an H100; PERF.md): of the cooperative one, three kernel launches
+// a column, 6.22-6.59 s a build; one launch, 5.86-6.19 s; the scan and the
+// rank fused, 5.86-6.15 s; a warp-wide look-back, 6.26-6.62 s. Of the
+// cluster form (the group kernel's device time a build, against the
+// cooperative form's 1.99 s): 8 CTAs, even slices and three barriers a
+// column, 1.31 s; 16 CTAs, 1.15 s (256 threads a CTA: 1.21 s); slices that
+// grow apart and one barrier in a column of few reads, 1.15 s; the
+// cluster's totals summed once a CTA, 0.99 s.
 
 constexpr int kScanPer = 4;                    // scan: entries a thread
 constexpr int kScanTile = kThreads * kScanPer; // scan: entries a tile
@@ -1014,6 +1053,7 @@ struct GroupArgs {
   int n_order;
   int j;
   int nst;
+  int ccap;                // cluster form: entries a CTA's slice of I_t holds
 };
 
 // Reads active in column c: #{r : lengths[by_len[r]] + 1 >= c}.
@@ -1307,6 +1347,515 @@ int group_grid(int64_t N) {
   }
   const int64_t want = (2 * N + kThreads - 1) / kThreads;
   return (int)(want < cap ? want : cap);
+}
+
+// The cluster form (the design is above group_kernel's). A CTA's dynamic
+// shared memory for N reads: two slices of I_t (int2: slot, key) of `cap`
+// entries, the column's sorted slots (int2: q, key; at most N), two
+// columns' head records (int2, kSparse each) and two columns' symbols by
+// read (u8, N each).
+constexpr int kCluster = 16;                 // CTAs a cluster (above the portable 8)
+constexpr int kCThreads = 512;               // threads a CTA
+constexpr int kCPer = 8;                     // entries of a slice a thread at most
+constexpr int kCSlice = kCThreads * kCPer;   // entries a slice at most
+constexpr int kCPf = 4;                      // reads a thread reads the next symbol of
+constexpr int kSparse = 512;                 // a column of at most this many reads: one barrier
+constexpr int kPackShift = 16;               // scan words: entries | active heads << 16
+constexpr int kLow = (1 << kPackShift) - 1;
+
+__host__ __forceinline__ int64_t cluster_even(int64_t N) {  // a slice of even slices
+  return (2 * N + kCluster - 1) / kCluster;
+}
+
+__host__ __forceinline__ int64_t cluster_fixed(int64_t N) {  // bytes beside the slices
+  return (N + 2 * kSparse) * (int64_t)sizeof(int2) + ((2 * N + 7) & ~int64_t(7));
+}
+
+__host__ __forceinline__ size_t cluster_smem(int64_t N, int64_t cap) {
+  return (size_t)(2 * cap * (int64_t)sizeof(int2) + cluster_fixed(N));
+}
+
+// #{l < n : s[l].x - l <= y}: the column's slots (sorted, distinct) whose
+// old position is at most y.
+__device__ __forceinline__ int slots_at_most(const int2* s, int n, int y) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s[mid].x - mid <= y) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// The table row of position pos into this SM's L1, ahead of its rank.
+__device__ __forceinline__ void prefetch_row(const int32_t* table, int pos) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(table + (int64_t)(pos >> kBinShift) * kRow));
+}
+
+// One cluster a group. CTA `me` holds entries [bef, bef + sz) of I_t, in
+// order, in its slice; a thread takes E = ceil(sz / kCThreads) of them in a
+// row. A column's slots that fall after the CTA's first entry and up to its
+// successor's (the next CTA that holds entries) merge into its own slice,
+// so the slices grow apart and a column needs no barrier after its merge;
+// a column that could overflow a slice (cap), or whose fullest slice holds
+// a row of entries a thread more than an even share (it paces every
+// phase), merges into even slices instead, behind a barrier. At t = 0 the CTAs scan shares of the caller's
+// order (n_order places in by_len) and write its heads into the empty I_0
+// buffer as (P, read << 3 | prev_v), the rest as -1; the column's slots
+// split evenly. A column of at most kSparse reads: each head pushes a
+// record (its rank plus its CTA's counts below it, its place among its
+// CTA's heads) into every CTA, and after one barrier every CTA builds the
+// column's sorted slots from the records itself. A wider column: after the
+// barrier each head computes its slot and writes it into every CTA, behind
+// a second barrier. A column's symbols by read are in every CTA before it:
+// each thread reads those of its kCPf reads a column ahead and writes them
+// into every CTA. Every thread of the cluster runs every phase.
+__global__ void __launch_bounds__(kCThreads, 1) cluster_group_kernel(const GroupArgs a) {
+  extern __shared__ int2 s_dyn[];
+  __shared__ int s_tot[2][kCluster][kSyms];  // each CTA's scan totals, packed, by column
+  __shared__ int s_ex[kCluster][kSyms];      // the totals of the CTAs before each
+  __shared__ int s_hb[kSyms];                // the column's heads of a smaller symbol
+  __shared__ int s_cb[kSyms];                // C_t
+  __shared__ int s_hist[kSyms];              // the column's new symbols
+  __shared__ int s_cnt[kSyms];               // the counts row before the column
+  __shared__ int s_next;                     // the successor's first slot, when read
+  __shared__ int s_max;                      // the fullest slice
+  __shared__ int warp_sums[kCThreads / 32][kSyms];
+  __shared__ int warp_pre[kCThreads / 32 + 1][kSyms];  // the warps' exclusive prefix; the CTA's total
+  cg::cluster_group cl = cg::this_cluster();
+  const int me = (int)cl.block_rank(), tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cap = a.ccap;
+  int2* ent[2] = {s_dyn, s_dyn + cap};
+  int2* col = s_dyn + 2 * cap;
+  int2* recs[2] = {col + a.N, col + a.N + kSparse};
+  uint8_t* vvs[2] = {reinterpret_cast<uint8_t*>(col + a.N + 2 * kSparse),
+                     reinterpret_cast<uint8_t*>(col + a.N + 2 * kSparse) + a.N};
+  auto rf = [&](int p) {  // this thread's reads: 32 in a row a warp, the CTAs in turn
+    return ((((p * kCThreads + tid) >> 5) * kCluster + me) << 5) + lane;
+  };
+  int ir[kCPf];  // their places in the view: by_len
+#pragma unroll
+  for (int p = 0; p < kCPf; ++p) ir[p] = rf(p) < a.N ? a.by_len[rf(p)] : 0;
+  // acts[t] = #{r : len_r >= j + t - 1}, the lengths falling in by_len
+  // order: read r writes r + 1 to the columns after read r + 1's last and
+  // up to its own (one past the longest's: 0)
+  for (int64_t r = me * kCThreads + tid - 1; r < a.N; r += kCluster * kCThreads) {
+    const int hi = r < 0 ? a.k - 1 : min(a.lengths[a.by_len[r]] + 1 - a.j, a.k - 1);
+    const int lo = r + 1 < a.N ? max(a.lengths[a.by_len[r + 1]] + 2 - a.j, 0) : 0;
+    for (int t = lo; t <= hi; ++t) a.acts[t] = (int)(r + 1);
+  }
+  if (tid < kSyms) {
+    s_cnt[tid] = a.counts[tid];
+    s_hist[tid] = 0;
+  }
+  cl.sync();
+  int A = __ldcg(a.acts), A1 = a.k > 1 ? __ldcg(a.acts + 1) : 0, off = 0, head0 = 0;
+  // this thread's symbols of a column into every CTA
+  auto spread = [&](uint8_t* dst, const int (&v)[kCPf], int n) {
+#pragma unroll
+    for (int p = 0; p < kCPf; ++p)
+      if (rf(p) < n)
+        for (int d = 0; d < kCluster; ++d) cl.map_shared_rank(dst, d)[rf(p)] = (uint8_t)v[p];
+  };
+  {
+    int v0[kCPf];
+#pragma unroll
+    for (int p = 0; p < kCPf; ++p) v0[p] = rf(p) < A ? a.cols[(int64_t)a.j * a.N + ir[p]] : 0;
+    spread(vvs[0], v0, A);
+  }
+  int sz = 0, bef = 0, succ_y = 0;  // this CTA's slice, the entries before it, its successor's first
+  bool succ = false, fresh = false;  // a successor; its first slot to be read from it
+  for (int t = 0; t < a.k; ++t) {
+    const int A2 = t + 2 < a.k ? __ldcg(a.acts + t + 2) : 0;
+    const int m = off, par = t & 1;
+    const bool sparse = A <= kSparse, last = t == a.k - 1;
+    int nscan = sz, sbase = bef;  // the entries this CTA scans, the index of the first
+    if (t == 0) {
+      const int S0 = (a.n_order + kCluster - 1) / kCluster;
+      sbase = me * S0;
+      nscan = max(0, min(S0, a.n_order - sbase));
+    }
+    const int E = (nscan + kCThreads - 1) / kCThreads, b = tid * E, bend = min(b + E, nscan);
+    int2* cur = ent[par];
+    const uint8_t* vcur = vvs[par];
+    const int64_t c = a.j + t;
+    int pv[kCPf];  // the next column's symbols, spread at the merge
+#pragma unroll
+    for (int p = 0; p < kCPf; ++p) pv[p] = rf(p) < A1 ? a.cols[(c + 1) * a.N + ir[p]] : 0;
+    if (fresh && tid == kCluster) s_next = cl.map_shared_rank(cur, me + 1)[0].x;
+    // scan: this thread's entries by symbol and head; the heads' rows
+    int px[kSyms] = {0, 0, 0, 0, 0, 0};
+    bool mine = false;  // a head among this thread's entries
+#pragma unroll 1
+    for (int li = b; li < bend; ++li) {
+      int f, old;
+      if (t == 0) {
+        const int r = a.order[sbase + li];
+        if ((unsigned)r >= (unsigned)A) {
+          cur[li] = make_int2(-1, -1);
+          continue;
+        }
+        const int64_t i = a.by_len[r];
+        f = a.prev_v[i];
+        old = a.P[i];
+        cur[li] = make_int2(old, (r << kKeyShift) | f);
+      } else {
+        const int2 en = cur[li];
+        f = en.y & 7;
+        old = en.x - (sbase + li);
+        if ((unsigned)((en.y >> kKeyShift) - head0) >= (unsigned)A) {
+#pragma unroll
+          for (int s = 0; s < kSyms; ++s) px[s] += f == s;
+          continue;
+        }
+      }
+      prefetch_row(a.table, old);
+      mine = true;
+#pragma unroll
+      for (int s = 0; s < kSyms; ++s) px[s] += f == s ? 1 + (1 << kPackShift) : 0;
+    }
+    // the block's scan, its prefixes only in the warps that hold a head
+    const bool wheads = __any_sync(kFull, mine);
+#pragma unroll
+    for (int s = 0; s < kSyms; ++s) {
+      int x = px[s];
+      if (wheads) {
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(kFull, x, o);
+          if (lane >= o) x += y;
+        }
+        px[s] = x - px[s];
+        x = __shfl_sync(kFull, x, 31);
+      } else {
+        x = __reduce_add_sync(kFull, x);
+      }
+      if (lane == 0) warp_sums[warp][s] = x;
+    }
+    __syncthreads();
+    if (tid < kSyms) {
+      int x = 0;
+      for (int w = 0; w < kCThreads / 32; ++w) {
+        warp_pre[w][tid] = x;
+        x += warp_sums[w][tid];
+      }
+      warp_pre[kCThreads / 32][tid] = x;
+    }
+    __syncthreads();
+    if (wheads) {
+#pragma unroll
+      for (int s = 0; s < kSyms; ++s) px[s] += warp_pre[warp][s];
+    }
+    if (tid < kCluster) {
+      int* dst = cl.map_shared_rank(&s_tot[par][me][0], tid);
+#pragma unroll
+      for (int s = 0; s < kSyms; ++s) dst[s] = warp_pre[kCThreads / 32][s];
+    }
+    // a thread's heads in order: their packed counts below them in this CTA
+    auto heads = [&](auto&& fn) {
+#pragma unroll 1
+      for (int li = b; li < bend; ++li) {
+        const int2 en = cur[li];
+        if (en.y < 0) continue;
+        const int f = en.y & 7, r = (en.y >> kKeyShift) - head0;
+        const bool head = (unsigned)r < (unsigned)A;
+        int pre = 0;
+#pragma unroll
+        for (int s = 0; s < kSyms; ++s) {
+          if (f != s) continue;
+          pre = px[s];
+          px[s] += 1 + ((int)head << kPackShift);
+        }
+        if (head) fn(en, li, f, r, pre);
+      }
+    };
+    if (sparse && mine) {  // the records: the rank and the counts below, into every CTA
+      heads([&](int2 en, int li, int f, int r, int pre) {
+        const int old = t == 0 ? en.x : en.x - (sbase + li);
+        const int2 rec = make_int2(rank_at(a.table, f, old) + (t == 0 ? 0 : pre & kLow),
+                                   (pre >> kPackShift << 8) | (f << 4) | me);
+        for (int d = 0; d < kCluster; ++d) cl.map_shared_rank(recs[par], d)[r] = rec;
+      });
+    }
+    cl.sync();
+    if (fresh) succ_y = s_next;
+    // the totals of the CTAs before each, the heads of a smaller symbol, C_t
+    if (tid < kCluster * kSyms) {
+      const int d = tid / kSyms, s = tid % kSyms;
+      int ex = 0;
+      for (int e = 0; e < d; ++e) ex += s_tot[par][e][s];
+      s_ex[d][s] = ex;
+    } else if (tid >= kCThreads - kSyms) {
+      const int s = tid - (kCThreads - kSyms);
+      int h = 0, cb = s == 0 ? 0 : a.nst;
+      for (int e = 0; e < s; ++e) {
+        for (int d = 0; d < kCluster; ++d) h += s_tot[par][d][e] >> kPackShift;
+        if (e > 0) cb += s_cnt[e];
+      }
+      s_hb[s] = h;
+      s_cb[s] = cb;
+    }
+    {
+      // the column's new symbols: a thread's counts (ceil(A / kCThreads),
+      // at most 64 reads for N < 2^15) three 10-bit fields a word; the
+      // warp's (at most 2,048 reads) two 16-bit fields a word, a pair of
+      // symbols at a time
+      int hv0 = 0, hv1 = 0;
+      for (int r = tid; r < A; r += kCThreads) {
+        const int v = vcur[r];
+        if (v < 3) hv0 += 1 << (10 * v);
+        else hv1 += 1 << (10 * (v - 3));
+      }
+#pragma unroll
+      for (int s = 0; s < kSyms; s += 2) {
+        const int lo = ((s < 3 ? hv0 : hv1) >> (10 * (s % 3))) & 1023;
+        const int hi = ((s + 1 < 3 ? hv0 : hv1) >> (10 * ((s + 1) % 3))) & 1023;
+        const int n = __reduce_add_sync(kFull, lo | hi << 16);
+        if (lane == 0 && n) {
+          if (n & 0xFFFF) atomicAdd(&s_hist[s], n & 0xFFFF);
+          if (n >> 16) atomicAdd(&s_hist[s + 1], n >> 16);
+        }
+      }
+    }
+    if (warp == 0) {  // the fullest slice, for the merge's choice
+      int n = 0;
+      if (lane < kCluster)
+#pragma unroll
+        for (int s = 0; s < kSyms; ++s) n += s_tot[par][lane][s] & kLow;
+      n = __reduce_max_sync(kFull, n);
+      if (lane == 0) s_max = n;
+    }
+    __syncthreads();
+    if (sparse) {  // every CTA builds the column's sorted slots from the records
+      const int2* rc = recs[par];
+      for (int r = tid; r < A; r += kCThreads) {
+        const int2 rec = rc[r];
+        const int f = (rec.y >> 4) & 7, ex = s_ex[rec.y & 15][f];
+        const int q = s_cb[f] + rec.x + (t == 0 ? 0 : ex & kLow);
+        const int l = s_hb[f] + (ex >> kPackShift) + (rec.y >> 8);
+        col[l] = make_int2(q, ((off + r) << kKeyShift) | vcur[r]);
+        if (last && me == 0) a.order_out[l] = r;
+      }
+      __syncthreads();
+    } else {  // each head's slot into every CTA's copy of the column
+      if (mine) {  // the rows again, all in flight before the first rank
+#pragma unroll 1
+        for (int li = b; li < bend; ++li) {
+          const int2 en = cur[li];
+          if (en.y >= 0 && (unsigned)((en.y >> kKeyShift) - head0) < (unsigned)A)
+            prefetch_row(a.table, t == 0 ? en.x : en.x - (sbase + li));
+        }
+        heads([&](int2 en, int li, int f, int r, int pre) {
+          pre += s_ex[me][f];
+          const int old = t == 0 ? en.x : en.x - (sbase + li);
+          const int q = s_cb[f] + rank_at(a.table, f, old) + (t == 0 ? 0 : pre & kLow);
+          const int l = s_hb[f] + (pre >> kPackShift);
+          const int2 slot = make_int2(q, ((off + r) << kKeyShift) | vcur[r]);
+          for (int d = 0; d < kCluster; ++d) cl.map_shared_rank(col, d)[l] = slot;
+          if (last) a.order_out[l] = r;
+        });
+      }
+      cl.sync();
+    }
+    // merge: this CTA's entries with the column's slots from its first
+    // entry up to its successor's, along merge-path diagonals
+    if (tid < kSyms) {
+      s_cnt[tid] += s_hist[tid];
+      s_hist[tid] = 0;
+    }
+    spread(vvs[par ^ 1], pv, A1);
+#pragma unroll
+    for (int p = 0; p < kCPf; ++p) {  // this column's symbols by id, the reads that end here
+      const int r = rf(p);
+      if (r < A) {
+        a.v[off + r] = vcur[r];
+        if (r >= A1) a.last_id[r] = off + r;
+      }
+    }
+    const int m1 = m + A, S1 = max(1, (m1 + kCluster - 1) / kCluster);
+    // even slices where one could overflow, or the fullest holds a row of
+    // entries a thread more than an even share (it paces every phase)
+    const bool even = m > 0 && (s_max + A > cap || s_max > S1 + kCThreads);
+    int2* nxt = ent[par ^ 1];
+    int l0, l1, nown;
+    if (m == 0) {  // the column alone, split evenly
+      const int S1 = (A + kCluster - 1) / kCluster;
+      l0 = min(me * S1, A);
+      l1 = min(l0 + S1, A);
+      nown = 0;
+    } else if (sz == 0) {
+      l0 = l1 = nown = 0;
+    } else {
+      l0 = bef > 0 ? slots_at_most(col, A, cur[0].x) : 0;
+      l1 = succ ? slots_at_most(col, A, succ_y) : A;
+      nown = sz;
+    }
+    const int nnew = l1 - l0, total = nown + nnew;
+    const int per = (total + kCThreads - 1) / kCThreads;
+    const int o0 = min(tid * per, total), o1 = min(o0 + per, total);
+    if (o0 < o1) {
+      const int2* nw = col + l0;  // this CTA's slots; d = q - (l0 + j)
+      int lo = max(0, o0 - nnew), hi = min(o0, nown);
+      while (lo < hi) {  // own entries among the first o0 outputs
+        const int mid = (lo + hi) >> 1;
+        const int jj = o0 - 1 - mid;
+        if (cur[mid].x < nw[jj].x - (l0 + jj)) lo = mid + 1;
+        else hi = mid;
+      }
+      int i = lo, jn = o0 - lo;
+      const int pos = bef + l0 + o0;  // in I_{t+1}
+      int d = even ? pos / S1 : me, at = even ? pos - d * S1 : o0;
+#pragma unroll 1
+      for (int o = o0; o < o1; ++o) {
+        int2 v;
+        if (i < nown && (jn >= nnew || cur[i].x < nw[jn].x - (l0 + jn))) {
+          v = cur[i++];
+          v.x += l0 + jn;
+        } else {
+          v = nw[jn++];
+        }
+        if (even && at == S1) {
+          ++d;
+          at = 0;
+        }
+        if (d == me) nxt[at] = v;
+        else cl.map_shared_rank(nxt, d)[at] = v;
+        ++at;
+      }
+    }
+    if (m == 0) {
+      sz = nnew;
+      bef = l0;
+      succ = l1 < A;
+      succ_y = succ ? col[l1].x : 0;
+      fresh = false;
+    } else if (even) {
+      sz = max(0, min(S1, m1 - me * S1));
+      bef = min(me * S1, m1);
+      succ = me + 1 < kCluster && (me + 1) * S1 < m1;
+      fresh = succ;
+    } else {
+      sz += nnew;
+      bef += l0;
+      succ_y += l1;
+      fresh = false;
+    }
+    if (even) cl.sync();
+    else __syncthreads();
+    head0 = off;
+    off += A;
+    A = A1;
+    A1 = A2;
+  }
+  // outputs by id, then the carry
+  const int M = off;
+  const int2* fin = ent[a.k & 1];
+  for (int li = tid; li < sz; li += kCThreads) {
+    const int2 en = fin[li];
+    a.q[en.y >> kKeyShift] = en.x;
+    a.active[bef + li] = 1;
+  }
+  for (int64_t idx = M + me * kCThreads + tid; idx < 2 * a.N; idx += kCluster * kCThreads) {
+    a.q[idx] = 0;
+    a.v[idx] = 0;
+    a.active[idx] = 0;
+  }
+  if (me == 0 && tid < kSyms) a.counts_out[tid] = s_cnt[tid];
+  cl.sync();
+  const int A0 = __ldcg(a.acts);
+#pragma unroll 4
+  for (int64_t r = me * kCThreads + tid; r < a.N; r += kCluster * kCThreads) {
+    const int64_t i = a.by_len[r];
+    if (r < A0) {
+      const int e = __ldcg(a.last_id + r);
+      a.P_out[i] = __ldcg(a.q + e);
+      a.prev_out[i] = __ldcg(a.v + e);
+    } else {
+      a.P_out[i] = a.P[i];
+      a.prev_out[i] = a.prev_v[i];
+    }
+  }
+}
+
+// The cluster form's limits on the current device, found once a device:
+// the room for dynamic shared memory a CTA, and the largest N it takes, 0
+// for none (even slices fit, a slice fits kCThreads threads of kCPer
+// entries, the read-ahead covers N, and a cluster of kCluster CTAs with that
+// much shared memory each can be placed: cudaOccupancyMaxActiveClusters; 16
+// CTAs is above the portable size, so the kernel allows it first). The
+// kernel's dynamic shared-memory limit is raised to the room.
+struct ClusterLimits {
+  int64_t room = 0, max_n = 0;
+};
+
+ClusterLimits cluster_limits() {
+  static std::mutex mu;
+  static ClusterLimits found[64];
+  static bool done[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mu);
+  if (dev < 64 && done[dev]) return found[dev];
+  ClusterLimits lim;
+  int optin = 0;
+  cudaFuncAttributes fa = {};
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncGetAttributes(&fa, cluster_group_kernel);
+  lim.room = (int64_t)optin - (int64_t)fa.sharedSizeBytes;
+  int64_t n = (int64_t)kCluster * kCSlice / 2;  // the slices' limit
+  const int64_t by_reads = (int64_t)kCPf * kCluster * kCThreads;  // the read-ahead's
+  n = n < by_reads ? n : by_reads;
+  n = n < 32767 ? n : 32767;  // the scan's packed counts: 2N below 2^16
+  while (n > 0 && (int64_t)cluster_smem(n, cluster_even(n)) > lim.room) --n;
+  if (n > 0) {
+    cudaLaunchAttribute attr = {};
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = kCluster;
+    attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster);
+    cfg.blockDim = dim3(kCThreads);
+    cfg.dynamicSmemBytes = (size_t)lim.room;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    if (cudaFuncSetAttribute(cluster_group_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1) != cudaSuccess ||
+        cudaFuncSetAttribute(cluster_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)lim.room) != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&clusters, cluster_group_kernel, &cfg) != cudaSuccess ||
+        clusters < 1)
+      n = 0;
+  }
+  cudaGetLastError();  // a refused query is an answer here, not the caller's error
+  lim.max_n = n;
+  if (dev < 64) {
+    found[dev] = lim;
+    done[dev] = true;
+  }
+  return lim;
+}
+
+int64_t cluster_max_n() { return cluster_limits().max_n; }
+
+// One cluster_group_kernel launch for the group (cluster_max_n() >= N):
+// its slices as large as the room allows, up to kCSlice entries.
+cudaError_t launch_cluster_group(GroupArgs a, cudaStream_t st) {
+  const ClusterLimits lim = cluster_limits();
+  const int64_t fit = (lim.room - cluster_fixed(a.N)) / (2 * (int64_t)sizeof(int2));
+  a.ccap = (int)(fit < kCSlice ? fit : kCSlice);
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kCThreads);
+  cfg.dynamicSmemBytes = cluster_smem(a.N, a.ccap);
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, cluster_group_kernel, a);
 }
 
 struct WalkArgs {
@@ -1655,13 +2204,16 @@ int64_t msbwt_lf_group_work_len(int64_t N, int64_t k) { return GroupLayout(N, k)
 // inserts by id, column t's reads at ids off_t + r, the sum(acts) active ids
 // first), P_out i32 [N], prev_out u8 [N], counts_out i32 [6], order_out i32
 // [N] (its first acts[k - 1]: the last column's reads in slot order). work
-// i32 [msbwt_lf_group_work_len(N, k)] is the call's own. A memset and one
-// cooperative launch on `stream`; returns the first error.
+// i32 [msbwt_lf_group_work_len(N, k)] is the call's own. One cluster launch
+// while N <= cluster_max_n(), else a memset and one cooperative launch, on
+// `stream`; form_host (host int32) gets 1 for the cluster form, 0 for the
+// cooperative one, once it is launched. Returns the first error.
 int msbwt_lf_group(const void* table, const void* cols, const void* lengths, const void* by_len,
                    const void* P, const void* prev_v, const void* counts, const void* order,
                    void* q, void* v, void* active, void* P_out, void* prev_out,
                    void* counts_out, void* order_out, void* work, const void* acts_host,
-                   int64_t N, int k, int n_order, int j, int nst, void* stream) {
+                   void* form_host, int64_t N, int k, int n_order, int j, int nst,
+                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int32_t* acts = (const int32_t*)acts_host;
   if (N <= 0 || N >= (int64_t(1) << 26) || k < 1 || n_order < acts[0] || n_order > N)
@@ -1709,14 +2261,25 @@ int msbwt_lf_group(const void* table, const void* cols, const void* lengths, con
   a.n_order = n_order;
   a.j = j;
   a.nst = nst;
-  cudaError_t err = cudaMemsetAsync(w, 0, l.acts * sizeof(int32_t), st);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)group_kernel, dim3(group_grid(N)),
-                                    dim3(kThreads), args, 0, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const bool cluster = N <= cluster_max_n();
+  cudaError_t err;
+  if (cluster) {
+    err = launch_cluster_group(a, st);
+  } else {
+    err = cudaMemsetAsync(w, 0, l.acts * sizeof(int32_t), st);
+    if (err != cudaSuccess) return (int)err;
+    void* args[] = {&a};
+    err = cudaLaunchCooperativeKernel((const void*)group_kernel, dim3(group_grid(N)),
+                                      dim3(kThreads), args, 0, st);
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err == cudaSuccess) *(int32_t*)form_host = cluster;
+  return (int)err;
 }
+
+// The largest N for which msbwt_lf_group takes the cluster form on the
+// current device (0: it never does there); for the tests, which build at it.
+int64_t msbwt_lf_group_cluster_max_n(void) { return cluster_max_n(); }
 
 // The cyclic terminator search: N walkers from row n, walker i taking
 // min(steps[i], n_steps) LF steps on the symbols of the stage view cols

@@ -24,8 +24,10 @@ host launches a column or a walk step. Here each is one call:
   ``ops.bcr.group_schedule``, where ragged reads leave few active): each
   column's slots ranked over the buffer with the group's earlier inserts
   off the table before the group, every earlier insert moved past them;
-  one cooperative kernel a group, its columns in phases parted by
-  grid-wide barriers. ``lf_group_plain`` (``group_column`` a column:
+  one kernel a group: while N is small enough (``lf_group_cluster_max_n``)
+  one thread-block cluster with the group's insert set in its shared
+  memory, else a cooperative grid with it in global memory; its columns in
+  phases parted by barriers. ``lf_group_plain`` (``group_column`` a column:
   sorts and searches in torch) is the plain version.
 * **lf_walk** — a batched LF walk run to its end inside one call. Four walks
   share the kernel file: ``lf_walk_cyclic`` (the extend's cyclic terminator
@@ -428,13 +430,18 @@ def lf_group(j: int, tab: torch.Tensor, cap: int, nst: int, cols: torch.Tensor,
     the order of their slots P, as the last group returned it (that
     group's last column, a superset); without it the call sorts them
     first (one ``torch.argsort``: after a pair or a single column). On
-    CUDA tensors a memset and one cooperative kernel launch, its columns
-    in phases parted by grid-wide barriers (``csrc/lf.cu``,
-    ``msbwt_lf_group``; the kernel counts each column's active reads from
-    ``lengths``, which ``acts`` must match), no host sync, a work array of
-    ~56 B a read. Unlike ``lf_stage`` and ``lf_pair`` it takes no scratch:
-    its counts live in its work array. ``lf_group.launches`` counts calls
-    and ``lf_group.columns`` the columns they carry.
+    CUDA tensors one kernel launch, its columns in phases parted by
+    barriers (``csrc/lf.cu``, ``msbwt_lf_group``; the kernel counts each
+    column's active reads from ``lengths``, which ``acts`` must match), no
+    host sync, a work array of ~56 B a read. The library picks the form by
+    N alone: up to ``lf_group_cluster_max_n(dev)`` reads one thread-block
+    cluster whose shared memory holds the group's inserts, else a memset
+    and one cooperative grid over them in global memory. Unlike
+    ``lf_stage`` and ``lf_pair`` it takes no scratch: its counts live in
+    its work array. ``lf_group.launches`` counts calls,
+    ``lf_group.columns`` the columns they carry and ``lf_group.cluster``
+    the calls that took the cluster form, as the library reports the form
+    it launched.
     """
     from rust_msbwt_tpu_torch import _kernels
 
@@ -472,16 +479,32 @@ def lf_group(j: int, tab: torch.Tensor, cap: int, nst: int, cols: torch.Tensor,
     prev_out = torch.empty(N, dtype=torch.uint8, device=dev)
     counts_out = torch.empty(VC_LEN, dtype=_I32, device=dev)
     order_out = torch.empty(N, dtype=_I32, device=dev)
+    form = np.zeros(1, np.int32)  # the library's answer: 1 for the cluster form
     _launch("msbwt_lf_group", tab, cols, lengths, by_len, P, prev_v, counts, order, q, v, active,
-            P_out, prev_out, counts_out, order_out, work, acts.ctypes.data, N, k,
-            order.shape[0], j, nst, dev=dev)
+            P_out, prev_out, counts_out, order_out, work, acts.ctypes.data, form.ctypes.data, N,
+            k, order.shape[0], j, nst, dev=dev)
     lf_group.launches += 1
     lf_group.columns += k
+    lf_group.cluster += int(form[0])
     return q, v, active, P_out, counts_out, prev_out, order_out[: int(acts[-1])]
 
 
 lf_group.launches = 0
 lf_group.columns = 0
+lf_group.cluster = 0
+
+
+def lf_group_cluster_max_n(dev: torch.device) -> int:
+    """The largest N (reads) for which ``lf_group`` on the CUDA device
+    ``dev`` takes the cluster form, 0 if it never does there: the
+    library's rule (``msbwt_lf_group_cluster_max_n``: the slices' thread
+    limit, the card's shared memory a CTA, a cluster the card can place).
+    ``lf_group`` does not ask it: the library picks the form and reports
+    it; the card tests build at this limit."""
+    from rust_msbwt_tpu_torch import _kernels
+
+    with torch.cuda.device(dev.index):
+        return int(_kernels.load().msbwt_lf_group_cluster_max_n())
 
 
 # ---------------------------------------------------------------------------

@@ -1289,23 +1289,131 @@ def test_lf_group_kernel_matches_plain(cuda, monkeypatch, shape):
     mean 150, the benchmark's long-read shape cut; a thin tail of 48
     columns; a group of three columns), through the kernels and through
     ``lf_group_plain`` on the same CUDA tensors: every output equal, one
-    call and its columns counted each time, after a pair (the order sorted
-    in the call) and after a group (the order handed on)."""
-    from rust_msbwt_tpu_torch.ops.lf import lf_group, lf_group_plain
+    call and its columns counted each time, each call in the cluster form
+    (``lf_group.cluster``), after a pair (the order sorted in the call) and
+    after a group (the order handed on)."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_group, lf_group_cluster_max_n, lf_group_plain
 
     calls, _ = group_captures(*ragged_reads(*GROUP_SHAPES[shape]), monkeypatch)
     assert any(c["order"] is None for c in calls)
     assert shape != "k3" or min(len(c["acts"]) for c in calls) == 3
+    assert lf_group_cluster_max_n(cuda) >= max(c["P"].numel() for c in calls)
     for c in calls:
         args, order = lf_group_args(c, cuda)
-        before = (lf_group.launches, lf_group.columns)
+        before = (lf_group.launches, lf_group.columns, lf_group.cluster)
         got = lf_group(*args, order=order)
         want = lf_group_plain(*args, order)
         torch.cuda.synchronize()
-        assert (lf_group.launches, lf_group.columns) == (before[0] + 1,
-                                                         before[1] + len(c["acts"]))
+        assert (lf_group.launches, lf_group.columns, lf_group.cluster) == (
+            before[0] + 1, before[1] + len(c["acts"]), before[2] + 1)
         assert [g.dtype for g in got] == [w.dtype for w in want]
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def group_edge_lengths(N, short=2798):
+    """N read lengths whose radix-2 schedule holds one column group that
+    starts with all N reads active, ``short`` of which end there, then
+    N - short of them, then 1,500 columns of two reads and one (with the
+    default 2,798, I_t up to 2N - 98 of its 2N slots): ``short`` of 3 bp,
+    the rest of 4 bp but two of 1,504 and 1,204 bp."""
+    x = N - short - 2
+    return np.array([3] * short + [4] * x + [1504, 1204], np.int32)
+
+
+def checked_groups(cuda, reads, lengths, monkeypatch):
+    """A one-shot build of these reads on the card whose every ``lf_group``
+    call is also run through ``lf_group_plain`` on the same inputs and held
+    equal to it, output by output. Returns the calls' ``acts``."""
+    from rust_msbwt_tpu_torch.ops import bcr, lf
+
+    seen = []
+
+    def spy(*args, order=None):
+        keep = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+        kept_order = None if order is None else order.clone()
+        got = lf.lf_group(*args, order=order)
+        want = lf.lf_group_plain(*keep, kept_order)
+        torch.cuda.synchronize()
+        assert [g.dtype for g in got] == [w.dtype for w in want]
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), f"group at column {args[0]}"
+        seen.append(np.array(args[7]))
+        return got
+
+    monkeypatch.setenv("MSBWT_TPU_RADIX", "2")
+    with monkeypatch.context() as m:
+        m.setattr(bcr, "lf_group", spy)
+        build_msbwt_with_index(reads, lengths, device=cuda)
+    return seen
+
+
+@pytest.mark.parametrize("above,ends", [(0, 2798), (1, 2798), (0, 16_500)],
+                         ids=["at_limit", "above_limit", "at_limit_ends"])
+def test_lf_group_cluster_limit_matches_plain(cuda, monkeypatch, above, ends):
+    """At the largest N the cluster form takes (``lf_group_cluster_max_n``)
+    and one read above it, a build whose group starts with all N reads
+    active and carries 1,500 columns of one or two reads
+    (``group_edge_lengths``): every group == ``lf_group_plain``; at the
+    limit each takes the cluster form, above it the cooperative one
+    (``lf_group.cluster`` unmoved). With 2,798 reads ending in the group's
+    first column, I_t comes within 98 of 2N; with all but 2,000 (at least
+    16,500), a warp of the cluster form counts over 1,024 reads of '$' in
+    that column's symbols."""
+    from rust_msbwt_tpu_torch.ops.lf import lf_group, lf_group_cluster_max_n
+
+    N = lf_group_cluster_max_n(cuda) + above
+    short = ends if ends == 2798 else N - 2000
+    assert N > 1 and short >= ends
+    lengths = group_edge_lengths(N, short)
+    reads = np.zeros((N, int(lengths.max())), np.uint8)
+    r = np.random.default_rng(N)
+    for i, k in enumerate(lengths):
+        reads[i, :k] = r.integers(1, 6, k)
+    before = lf_group.cluster
+    acts = checked_groups(cuda, reads, lengths, monkeypatch)
+    assert any(a[0] == N and a[1] == N - short and (a <= 2).sum() >= 1000
+               and a.sum() >= N + (N - short) + 2700 for a in acts)
+    assert lf_group.cluster - before == (0 if above else len(acts))
+
+
+def test_lf_group_two_streams_match_plain(cuda, monkeypatch):
+    """Two ragged builds at once (400 gamma-length reads each at mean
+    1,500 bp), each from its own host thread under its own stream, both
+    queued behind a spin so that their groups run on the card together:
+    each == the same reads built alone at radix 1, BWT and table, every
+    group in the cluster form (the counters, bumped from two threads
+    without a lock, only checked to have moved)."""
+    import threading
+
+    from rust_msbwt_tpu_torch.ops.lf import lf_group, lf_group_cluster_max_n
+
+    sets = [ragged_reads(400, 1500, 1300, seed) for seed in (24, 25)]
+    monkeypatch.setenv("MSBWT_TPU_RADIX", "1")
+    want = [build_msbwt_with_index(reads, lengths, device=cuda) for reads, lengths in sets]
+    monkeypatch.setenv("MSBWT_TPU_RADIX", "2")
+    build_msbwt_with_index(*sets[0], device=cuda)  # the library built, its limits found
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in sets]
+    for s in streams:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(STREAM_GATE)
+    got, start = [None, None], threading.Barrier(2)
+    before = (lf_group.launches, lf_group.cluster)
+
+    def run(k):
+        with torch.cuda.stream(streams[k]):
+            start.wait()
+            got[k] = build_msbwt_with_index(*sets[k], device=cuda)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert lf_group_cluster_max_n(cuda) >= 400  # every group in the cluster form
+    assert lf_group.launches > before[0] and lf_group.cluster > before[1]
+    for (idx, packed), (idx1, packed1) in zip(got, want):
+        assert torch.equal(idx.bwt, idx1.bwt) and torch.equal(packed.table, packed1.table)
 
 
 def test_unforced_ragged_build_takes_groups(cuda, monkeypatch):

@@ -5,7 +5,8 @@ numpy oracle, whole ragged builds through groups against the naive BWT and
 radix 1 (one-shot, onto a base, streamed; sorted and chronological), the
 radix-2 schedule with groups (``ops.bcr.group_schedule``) against its rule,
 against the pairs on reads of one length and on the benchmark's nanopore
-read lengths, and the benchmark's reader of the group's device time.
+read lengths, ``lf_group`` on CPU tensors (the plain version, no counter
+moved), and the benchmark's reader of the group's device time.
 Every comparison is bit-exact (tolerance 0: every output is an integer).
 """
 
@@ -99,6 +100,23 @@ def test_group_equals_column_by_column(monkeypatch, shape, sorted_insert, onto_b
         assert torch.equal(order_out.long(), torch.argsort(slots[off[-2]:]))
         rest = by[acts[0]:]
         assert torch.equal(P[rest], c["P"][rest]) and torch.equal(prev_v[rest], c["prev_v"][rest])
+
+
+@pytest.mark.parametrize("shape", list(GROUP_SHAPES))
+def test_lf_group_on_cpu_tensors_is_the_plain_version(monkeypatch, shape):
+    """``lf_group`` on CPU tensors runs ``lf_group_plain`` and launches
+    nothing: every output equal on each kept group of a ragged build, and
+    none of its counters moved (``launches``, ``columns``, ``cluster``, the
+    calls that took the card's cluster form)."""
+    calls, _ = group_captures(*ragged_reads(*GROUP_SHAPES[shape]), monkeypatch,
+                              keep=_keep_some)
+    before = (lf.lf_group.launches, lf.lf_group.columns, lf.lf_group.cluster)
+    for c in (c for c in calls if c is not None):
+        args, order = lf_group_args(c, "cpu")
+        got = lf.lf_group(*args, order=order)
+        want = lf.lf_group_plain(*args, order)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (lf.lf_group.launches, lf.lf_group.columns, lf.lf_group.cluster) == before
 
 
 @pytest.mark.parametrize("seed", range(3))
